@@ -1,0 +1,379 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (v2x_sim_tpu_torch) on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own line; any failure exits non-zero:
+
+  1. Card and build: the card's name and power limit (nvidia-smi), then
+     every kernel of the predict path built from csrc/ with nvcc, with
+     ptxas' register and spill report.
+  2. Each kernel against its plain PyTorch version on the card, at the
+     path's shapes and at 2^20 pairs, plus known-value cases; timed with
+     CUDA events.
+  3. The main path at full width: DiscoNet (6 agents, 256x256x13 BEV,
+     widths 32..512, fusion at stage 3) predicting B=16 synthetic scenes
+     from seeded random weights that go through the weight bridge. The
+     kernel's launch count must rise; the NMS IoU matrix must match the
+     plain version; one scene must match the port run on the CPU.
+  4. Timing: predict scenes/sec in fp32 and bf16, per-stage CUDA-event
+     times, peak device memory.
+
+The last lines are the kernels' JSON record, the nvidia-smi line, and
+{"ok": true, "device": {...}}. Without a CUDA device, or without the
+port's package beside this file, it exits non-zero and prints no result.
+Parity phases run with TF32 off (cuDNN and matmul), so fp32 is fp32.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside
+#: the tensor cores, and HBM3 bandwidth.
+PEAK_FP32_OPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+#: bench.py's predict shapes: B=16 scenes x 6 agents, 128 NMS candidates.
+BATCH = 16
+MAX_BOXES = 128
+NMS_IOU = 0.1
+SCORE_THRESHOLD = 0.3
+IOU_TOL = 1e-4  # kernel vs plain on random pairs (fp32, different FMA contraction)
+SCORE_TOL = 1e-4  # card vs CPU, where valid
+BOX_TOL = 1e-3  # card vs CPU boxes (m, rad), where valid: exp() of fp32 codes
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def random_boxes(rng: np.random.Generator, n: int, spread: float = 6.0) -> np.ndarray:
+    """(n, 5) float32 boxes, dense enough that most pairs overlap some."""
+    return np.stack(
+        [
+            rng.uniform(-spread, spread, n),
+            rng.uniform(-spread, spread, n),
+            rng.uniform(1.0, 5.0, n),
+            rng.uniform(0.8, 3.0, n),
+            rng.uniform(-np.pi, np.pi, n),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+
+
+#: (box a, box b, IoU, atol): identical, half-shifted square, far apart, contained.
+SPECIAL_CASES = (
+    ((1.0, 2.0, 4.0, 2.0, 0.7), (1.0, 2.0, 4.0, 2.0, 0.7), 1.0, 1e-4),
+    ((0.0, 0.0, 2.0, 2.0, 0.0), (1.0, 0.0, 2.0, 2.0, 0.0), 1.0 / 3.0, 1e-4),
+    ((0.0, 0.0, 2.0, 2.0, 0.0), (50.0, 50.0, 2.0, 2.0, 1.0), 0.0, 1e-6),
+    ((0.0, 0.0, 10.0, 10.0, 0.2), (0.0, 0.0, 2.0, 2.0, 1.0), 0.04, 1e-4),
+)
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def iou_bound(pairs: int, bytes_moved: int):
+    """Least time (ms) for the IoU work and what bounds it."""
+    from v2x_sim_tpu_torch.ops.cuda.iou_cu import OPS_PER_PAIR
+
+    t_ops = OPS_PER_PAIR * pairs / PEAK_FP32_OPS
+    t_bytes = bytes_moved / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_build() -> None:
+    from v2x_sim_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    built = build.build(["rotated_iou"])
+    for name, b in built.items():
+        report = [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
+        log(f"[1] built {name} -> {os.path.relpath(b.path, ROOT)} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for ln in report:
+            log(f"[1]   ptxas: {ln}")
+
+
+def phase_kernel(device, card: str, groups: int, n_random: int) -> dict:
+    """Kernel vs plain version at the path's shape and at n_random pairs."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops import iou_sh
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+
+    rng = np.random.default_rng(0)
+    # Known values through both entry points.
+    a = torch.tensor([c[0] for c in SPECIAL_CASES], device=device)
+    b = torch.tensor([c[1] for c in SPECIAL_CASES], device=device)
+    want = torch.tensor([c[2] for c in SPECIAL_CASES])
+    tol = torch.tensor([c[3] for c in SPECIAL_CASES])
+    got_pairs = iou_cu.rotated_iou_pairs_soa(a.T.contiguous(), b.T.contiguous()).cpu()
+    got_mat = iou_cu.rotated_iou_matrix(a[:, None].contiguous(), b[:, None].contiguous()).cpu()
+    for name, got in (("pairs", got_pairs), ("matrix", got_mat.reshape(-1))):
+        if not bool(((got - want).abs() <= tol).all()):
+            raise AssertionError(f"special cases via {name}: got {got.tolist()}, want {want.tolist()}")
+    log(f"[2] special cases ok via both entry points: {got_pairs.tolist()}")
+
+    # (a) aligned pairs at n_random.
+    pa = torch.from_numpy(random_boxes(rng, n_random)).to(device)
+    pb = torch.from_numpy(random_boxes(rng, n_random)).to(device)
+    pa_soa, pb_soa = pa.T.contiguous(), pb.T.contiguous()
+    got = iou_cu.rotated_iou_pairs_soa(pa_soa, pb_soa)
+    ref = iou_sh.rotated_iou(pa, pb)
+    err_pairs = float((got - ref).abs().max())
+    if not err_pairs <= IOU_TOL:
+        raise AssertionError(f"pairs entry: max |kernel - plain| = {err_pairs} > {IOU_TOL}")
+    # (b) batched matrix at the NMS shape.
+    ma = torch.from_numpy(random_boxes(rng, groups * MAX_BOXES).reshape(groups, MAX_BOXES, 5)).to(device)
+    got = iou_cu.rotated_iou_matrix(ma, ma)
+    ref = iou_sh.rotated_iou_matrix(ma, ma)
+    err_mat = float((got - ref).abs().max())
+    if not err_mat <= IOU_TOL:
+        raise AssertionError(f"matrix entry: max |kernel - plain| = {err_mat} > {IOU_TOL}")
+    overlap = float((ref > 0).float().mean())
+    log(f"[2] kernel vs plain: pairs ({n_random}) max_abs_err={err_pairs:.3e}; "
+        f"matrix ({groups}x{MAX_BOXES}x{MAX_BOXES}) max_abs_err={err_mat:.3e}; "
+        f"share of pairs that overlap {overlap:.3f}")
+
+    mat_pairs = groups * MAX_BOXES * MAX_BOXES
+    out = {
+        "err_mat": err_mat,
+        "ms": time_ms(lambda: iou_cu.rotated_iou_matrix(ma, ma), iters=50),
+        "plain_ms": time_ms(lambda: iou_sh.rotated_iou_matrix(ma, ma), iters=10),
+        "pairs_ms": time_ms(lambda: iou_cu.rotated_iou_pairs_soa(pa_soa, pb_soa), iters=50),
+        "pairs_plain_ms": time_ms(lambda: iou_sh.rotated_iou(pa, pb), iters=10),
+    }
+    out["bound_ms"], out["bound_by"] = iou_bound(
+        mat_pairs, 4 * (2 * groups * MAX_BOXES * 5 + mat_pairs))
+    pairs_bound, pairs_by = iou_bound(n_random, iou_cu.BYTES_PER_PAIR * n_random)
+    log(f"[2] rotated_iou_matrix {groups}x{MAX_BOXES}x{MAX_BOXES}: kernel {out['ms']:.4f} ms, "
+        f"plain {out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}) "
+        f"[{card}]")
+    log(f"[2] rotated_iou_pairs {n_random}: kernel {out['pairs_ms']:.4f} ms, plain "
+        f"{out['pairs_plain_ms']:.3f} ms, bound {pairs_bound:.4f} ms ({pairs_by}); "
+        f"library_ms null: no single PyTorch call computes rotated-box IoU [{card}]")
+    return out
+
+
+def phase_main_path(device, cfg, spec, batch_size: int, variables) -> dict:
+    """Drive DetModule.predict on the card; check launches, finiteness, the
+    NMS IoU matrix against the plain version, and one scene against the CPU."""
+    import torch
+
+    from v2x_sim_tpu_torch.datasets.synthetic import generate_batch
+    from v2x_sim_tpu_torch.ops import iou_sh
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.ops.nms import greedy_keep, sort_candidates
+    from v2x_sim_tpu_torch.ops.postprocess import decode_topk
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    module = DetModule(cfg, "disco", torch.float32, device=device)
+    module.load_flax_variables(variables)
+    batches = [generate_batch(cfg, spec, batch_size, seed=s) for s in (0, 1)]
+
+    iou_cu.reset_launches()
+    results = [module.predict(bt, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD) for bt in batches]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = iou_cu.rotated_iou_matrix.launches
+    if device.type == "cuda" and launches < 1:
+        raise AssertionError("the predict path never launched the rotated-IoU kernel")
+    for r in results:
+        for name, t in (("boxes", r.boxes), ("scores", r.scores)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"non-finite {name} in the predict output")
+    n_valid = [int(r.valid.sum()) for r in results]
+    log(f"[3] predict x{len(batches)} at B={batch_size}: rotated_iou_matrix launches={launches}, "
+        f"kept boxes per batch {n_valid}, outputs finite")
+
+    # The NMS candidates of batch 0: kernel IoU vs plain IoU on the card.
+    with torch.inference_mode():
+        bt = module.to_device(batches[0])
+        am = bt["agent_mask"].to(torch.bool)
+        out = module.model(module.model_input(bt), bt["trans"], am)
+        boxes, scores, valid = decode_topk(
+            out.cls_logits, out.reg, module.anchors, MAX_BOXES, SCORE_THRESHOLD, am,
+            peak_window=module.peak_window)
+        sb, _, sv = sort_candidates(
+            boxes.reshape(-1, MAX_BOXES, 5), scores.reshape(-1, MAX_BOXES),
+            valid.reshape(-1, MAX_BOXES))
+        sb = sb.contiguous()
+        iou_k = iou_cu.rotated_iou_matrix(sb, sb)
+        iou_p = iou_sh.rotated_iou_matrix(sb, sb)
+        err = float((iou_k - iou_p).abs().max())
+        keep_k = greedy_keep(iou_k, sv, NMS_IOU)
+        keep_p = greedy_keep(iou_p, sv, NMS_IOU)
+    if not err <= IOU_TOL:
+        raise AssertionError(f"NMS IoU: max |kernel - plain| = {err} > {IOU_TOL}")
+    near = ((iou_p - NMS_IOU).abs() <= IOU_TOL).any(dim=(1, 2))
+    differ = (keep_k != keep_p).any(dim=1)
+    if bool((differ & ~near).any()):
+        raise AssertionError("NMS keep masks differ away from the IoU threshold")
+    if not torch.equal(keep_k, results[0].valid.reshape(-1, MAX_BOXES)):
+        raise AssertionError("predict's keep mask differs from the candidates' recomputation")
+    log(f"[3] NMS candidates of batch 0: IoU max_abs_err kernel vs plain {err:.3e}; keep masks "
+        f"equal in {int((~differ).sum())}/{differ.numel()} problems (others near the threshold: "
+        f"{int(differ.sum())})")
+
+    # One scene through the port on the CPU, same weights.
+    cpu = DetModule(cfg, "disco", torch.float32, device="cpu")
+    cpu.load_flax_variables(variables)
+    scene = {k: v[:1] for k, v in batches[0].items()}
+    t0 = time.perf_counter()
+    ref = cpu.predict(scene, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
+    cpu_s = time.perf_counter() - t0
+    dev_valid = results[0].valid[:1].cpu()
+    if not torch.equal(dev_valid, ref.valid):
+        raise AssertionError(
+            f"valid masks differ card vs CPU: {int((dev_valid != ref.valid).sum())} entries")
+    v = ref.valid
+    d_scores = float((results[0].scores[:1].cpu()[v] - ref.scores[v]).abs().max()) if v.any() else 0.0
+    d_boxes = float((results[0].boxes[:1].cpu()[v] - ref.boxes[v]).abs().max()) if v.any() else 0.0
+    if not (d_scores <= SCORE_TOL and d_boxes <= BOX_TOL):
+        raise AssertionError(f"card vs CPU where valid: scores {d_scores}, boxes {d_boxes}")
+    log(f"[3] card vs CPU, scene 0 ({int(v.sum())} kept): valid equal, max |d score| "
+        f"{d_scores:.3e} (tol {SCORE_TOL}), max |d box| {d_boxes:.3e} (tol {BOX_TOL}); "
+        f"CPU predict {cpu_s:.1f} s")
+    return {"launches": launches, "batches": batches}
+
+
+def phase_timing(device, cfg, variables, batch, card: str) -> dict:
+    """Predict throughput, per-stage CUDA-event times and peak memory."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops.nms import batched_nms
+    from v2x_sim_tpu_torch.ops.postprocess import decode_topk
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    out = {}
+    for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        module = DetModule(cfg, "disco", dtype, device=device)
+        module.load_flax_variables(variables)
+        b = batch["points"].shape[0]
+        for _ in range(2):
+            module.predict(batch, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
+        torch.cuda.synchronize()
+        steps = 5
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            res = module.predict(batch, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
+        torch.cuda.synchronize()
+        rate = b * steps / (time.perf_counter() - t0)
+        if not (bool(torch.isfinite(res.boxes).all()) and bool(torch.isfinite(res.scores).all())):
+            raise AssertionError(f"non-finite {label} predict output")
+        del res
+
+        # Per-stage device times of one predict, events between stages.
+        names = ("upload", "voxelize", "encoder", "fusion", "decoder+heads", "decode", "nms")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ev[0].record()
+            bt = module.to_device(batch)
+            am = bt["agent_mask"].to(torch.bool)
+            ev[1].record()
+            occ = module.model_input(bt)
+            ev[2].record()
+            feats = module.model.encode(occ)
+            ev[3].record()
+            feats = module.model.fuse(feats, bt["trans"], am)
+            ev[4].record()
+            o = module.model.decode_heads(feats, occ.shape[1])
+            ev[5].record()
+            dec = decode_topk(o.cls_logits, o.reg, module.anchors, MAX_BOXES,
+                              SCORE_THRESHOLD, am, peak_window=module.peak_window)
+            ev[6].record()
+            batched_nms(*dec, NMS_IOU)
+            ev[7].record()
+        torch.cuda.synchronize()
+        stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        out[label] = {"scenes_per_s": rate, "stages_ms": stages, "peak_gib": peak_gib}
+        split = ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        log(f"[4] {label}: predict {rate:.2f} scenes/s at B={b} (host clock over {steps} "
+            f"synchronized calls); stages ms: {split}; peak memory {peak_gib:.2f} GiB [{card}]")
+        del module
+        torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        from v2x_sim_tpu_torch.bridge import random_flax_variables
+        from v2x_sim_tpu_torch.configs.config import Config
+        from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec
+        from v2x_sim_tpu_torch.models.det.net import DetModel
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing beside this script: {e}", file=sys.stderr)
+        return 2
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+
+    phase_build()
+    k = phase_kernel(device, card, groups=BATCH * 6, n_random=1 << 20)
+
+    cfg = Config()  # production geometry: 256x256x13, 6 agents, fusion at stage 3
+    spec = SyntheticSpec(points_per_agent=8192, num_vehicles=12, max_gt=32)
+    variables = random_flax_variables(DetModel(cfg, "disco"), seed=0)
+    main_path = phase_main_path(device, cfg, spec, BATCH, variables)
+    phase_timing(device, cfg, variables, main_path["batches"][0], card)
+
+    kernels = [{
+        "name": "rotated_iou_matrix",
+        "route": "cuda",
+        "source": "v2x_sim_tpu_torch/csrc/rotated_iou.cu",
+        "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
+        "launches": main_path["launches"],
+        "max_abs_err": k["err_mat"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": None,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+"""The rotated-IoU kernel wrapper (ops/cuda/iou_cu.py): its CPU route,
+its input checks, and — on a CUDA card only — the CUDA kernel against the
+plain PyTorch version.
+
+This file imports neither JAX nor tests/conftest.py's setup, so it runs
+on the card's machine, which has no JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from v2x_sim_tpu_torch.ops import iou_sh
+from v2x_sim_tpu_torch.ops.cuda import iou_cu
+
+
+def _random_boxes(rng, n, spread=6.0):
+    return np.stack(
+        [
+            rng.uniform(-spread, spread, n),
+            rng.uniform(-spread, spread, n),
+            rng.uniform(1.0, 5.0, n),
+            rng.uniform(0.8, 3.0, n),
+            rng.uniform(-np.pi, np.pi, n),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card; decided here, at run time, never at collection."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest -m gpu tests/test_torch_cuda.py")
+    return torch.device("cuda")
+
+
+def test_wrapper_takes_plain_version_for_cpu_tensors():
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(_random_boxes(rng, 3 * 10).reshape(3, 10, 5))
+    b = torch.from_numpy(_random_boxes(rng, 3 * 7).reshape(3, 7, 5))
+    before = (iou_cu.rotated_iou_matrix.launches, iou_cu.rotated_iou_pairs_soa.launches)
+    got = iou_cu.rotated_iou_matrix(a, b)
+    np.testing.assert_array_equal(got.numpy(), iou_sh.rotated_iou_matrix(a, b).numpy())
+    a_soa, b_soa = a[0].T.contiguous(), a[1].T.contiguous()
+    np.testing.assert_array_equal(
+        iou_cu.rotated_iou_pairs_soa(a_soa, b_soa).numpy(),
+        iou_sh.rotated_iou(a[0], a[1]).numpy())
+    assert (iou_cu.rotated_iou_matrix.launches, iou_cu.rotated_iou_pairs_soa.launches) == before
+
+
+def test_wrapper_rejects_malformed_operands():
+    a = torch.zeros(2, 4, 5)
+    with pytest.raises(ValueError):
+        iou_cu.rotated_iou_matrix(a, torch.zeros(3, 4, 5))  # G differs
+    with pytest.raises(ValueError):
+        iou_cu.rotated_iou_matrix(a, torch.zeros(2, 4, 4))  # not 5 fields
+    with pytest.raises(ValueError):
+        iou_cu.rotated_iou_pairs_soa(torch.zeros(5, 3), torch.zeros(5, 4))
+    with pytest.raises(ValueError):
+        iou_cu.rotated_iou_matrix(a, a.to("meta"))  # mixed devices
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_card(cuda_device):
+    """Both entry points of csrc/rotated_iou.cu against the plain version.
+    atol 1e-4: the kernel's FMA contraction rounds differently from
+    PyTorch's separate ops (measured max ~6e-6 on the H100)."""
+    rng = np.random.default_rng(4)
+    n = 1 << 16
+    a = torch.from_numpy(_random_boxes(rng, n)).to(cuda_device)
+    b = torch.from_numpy(_random_boxes(rng, n)).to(cuda_device)
+    launches = iou_cu.rotated_iou_pairs_soa.launches
+    got = iou_cu.rotated_iou_pairs_soa(a.T.contiguous(), b.T.contiguous())
+    assert iou_cu.rotated_iou_pairs_soa.launches == launches + 1
+    torch.testing.assert_close(got, iou_sh.rotated_iou(a, b), atol=1e-4, rtol=0)
+
+    g = torch.from_numpy(_random_boxes(rng, 6 * 128).reshape(6, 128, 5)).to(cuda_device)
+    h = torch.from_numpy(_random_boxes(rng, 6 * 100).reshape(6, 100, 5)).to(cuda_device)
+    got = iou_cu.rotated_iou_matrix(g, h)
+    torch.cuda.synchronize()
+    assert got.shape == (6, 128, 100)
+    torch.testing.assert_close(got, iou_sh.rotated_iou_matrix(g, h), atol=1e-4, rtol=0)
+    with pytest.raises(TypeError):
+        iou_cu.rotated_iou_matrix(g.double(), h.double())

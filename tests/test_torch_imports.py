@@ -1,0 +1,70 @@
+"""The port stands alone: nothing under v2x_sim_tpu_torch/ nor
+chip_smoke.py imports JAX, flax or the JAX package, and its entry points
+refuse to run without a card unless asked for the CPU."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "v2x_sim_tpu"}
+
+
+def _port_files():
+    return sorted((ROOT / "v2x_sim_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {alias.name.split(".")[0] for alias in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None)) in ("import_module", "__import__")
+            and node.args and isinstance(node.args[0], ast.Constant)
+        ):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_port_imports_nothing_of_jax():
+    files = _port_files()
+    assert len(files) > 10
+    bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_import_scan_catches_forbidden_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "import os\nimport jax.numpy as jnp\nfrom v2x_sim_tpu.ops import nms\n"
+        "from flax import linen\nimport importlib\nimportlib.import_module('optax')\n"
+    )
+    assert _imported_roots(probe) & FORBIDDEN == {"jax", "v2x_sim_tpu", "flax", "optax"}
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from v2x_sim_tpu_torch import resolve_device
+    from v2x_sim_tpu_torch.configs.config import Config
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DetModule(Config(), "disco")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("mode", ["upperbound", "v2v", "when2com"])
+def test_unported_modes_name_their_roadmap_item(mode):
+    from v2x_sim_tpu_torch.configs.config import Config
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+        DetModel(Config(), mode)
