@@ -6,18 +6,28 @@
 Phases, each reported on its own line; any failure exits non-zero:
 
   1. Card and build: the card's name and power limit (nvidia-smi), then
-     every kernel of the predict path built from csrc/ with nvcc, with
-     ptxas' register and spill report.
-  2. Each kernel against its plain PyTorch version on the card, at the
-     path's shapes and at 2^20 pairs, plus known-value cases; timed with
-     CUDA events.
-  3. The main path at full width: DiscoNet (6 agents, 256x256x13 BEV,
-     widths 32..512, fusion at stage 3) predicting B=16 synthetic scenes
-     from seeded random weights that go through the weight bridge. The
+     every kernel of the predict and training paths built from csrc/ with
+     nvcc, with ptxas' register and spill report.
+  2. Each kernel entry point against its plain PyTorch version on the
+     card, with known-value cases: the NMS matrix, aligned pairs at 2^20
+     and at the assignment's forced-anchor shape, periodic pairs at ~2^20
+     with a period that tiles nothing; timed with CUDA events.
+  3. Predict at full width: DiscoNet (6 agents, 256x256x13 BEV, widths
+     32..512, fusion at stage 3) predicting B=16 synthetic scenes from
+     seeded random weights that go through the weight bridge. The matrix
      kernel's launch count must rise; the NMS IoU matrix must match the
      plain version; one scene must match the port run on the CPU.
-  4. Timing: predict scenes/sec in fp32 and bf16, per-stage CUDA-event
+  4. Predict timing: scenes/sec in fp32 and bf16, per-stage CUDA-event
      times, peak device memory.
+  5. Training at full width: prepare_batch (voxelize + sparse anchor
+     assignment) then train_step on B=16 scenes. The periodic kernel must
+     launch exactly twice per prepare_batch and the aligned pairs at least
+     once; one scene's assignment and loss must match the port on the
+     CPU; loss and grads stay finite and the loss falls over 8 fp32
+     steps on one batch. Then the periodic kernel's full-size output on
+     that batch (37.7M pairs) against the plain version, in chunks.
+  6. Training timing: train scenes/sec (step only, and prepare + step) in
+     fp32 and bf16, per-stage CUDA-event times, peak device memory.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -50,6 +60,14 @@ SCORE_THRESHOLD = 0.3
 IOU_TOL = 1e-4  # kernel vs plain on random pairs (fp32, different FMA contraction)
 SCORE_TOL = 1e-4  # card vs CPU, where valid
 BOX_TOL = 1e-3  # card vs CPU boxes (m, rad), where valid: exp() of fp32 codes
+#: Assignment card vs CPU: labels may differ only at anchors whose IoU lies
+#: this close to a threshold (kernel and plain version round differently).
+NEAR_THRESHOLD = 1e-4
+REG_TOL = 1e-5  # regression targets card vs CPU
+LOSS_RTOL = 1e-4  # one scene's loss card vs CPU (fp32, TF32 off)
+TRAIN_STEPS = 8  # fp32 steps on one batch over which the loss must fall
+CHUNK = 1 << 20  # pairs per chunk of the plain version in the full-size periodic check
+PERIOD = 4099  # a prime period for the random periodic check
 
 
 def log(msg: str) -> None:
@@ -117,8 +135,10 @@ def phase_build() -> None:
             log(f"[1]   ptxas: {ln}")
 
 
-def phase_kernel(device, card: str, groups: int, n_random: int) -> dict:
-    """Kernel vs plain version at the path's shape and at n_random pairs."""
+def phase_kernel(device, card: str, groups: int, n_random: int, own_pairs: int) -> dict:
+    """Each entry point vs the plain version: the matrix at the NMS shape,
+    aligned pairs at n_random and at groups * own_pairs (the forced-anchor
+    test's GT x anchor-shape pairs), periodic pairs at ~n_random."""
     import torch
 
     from v2x_sim_tpu_torch.ops import iou_sh
@@ -157,6 +177,29 @@ def phase_kernel(device, card: str, groups: int, n_random: int) -> dict:
     log(f"[2] kernel vs plain: pairs ({n_random}) max_abs_err={err_pairs:.3e}; "
         f"matrix ({groups}x{MAX_BOXES}x{MAX_BOXES}) max_abs_err={err_mat:.3e}; "
         f"share of pairs that overlap {overlap:.3f}")
+    # (c) aligned pairs at the assignment's forced-anchor shape.
+    n_own = groups * own_pairs
+    oa = torch.from_numpy(random_boxes(rng, n_own)).to(device)
+    ob = torch.from_numpy(random_boxes(rng, n_own)).to(device)
+    oa_soa, ob_soa = oa.T.contiguous(), ob.T.contiguous()
+    err_own = float((iou_cu.rotated_iou_pairs_soa(oa_soa, ob_soa) - iou_sh.rotated_iou(oa, ob)).abs().max())
+    if not err_own <= IOU_TOL:
+        raise AssertionError(f"pairs entry at {n_own}: max |kernel - plain| = {err_own} > {IOU_TOL}")
+    # (d) periodic pairs: known values three times over, then a prime period.
+    got = iou_cu.rotated_iou_pairs_soa_periodic(a.T.contiguous(), b.repeat(3, 1).T.contiguous()).cpu()
+    if not bool(((got - want.repeat(3)).abs() <= tol.repeat(3)).all()):
+        raise AssertionError(f"special cases via the periodic entry: got {got.tolist()}")
+    reps = n_random // PERIOD
+    qa = torch.from_numpy(random_boxes(rng, PERIOD)).to(device)
+    qb = torch.from_numpy(random_boxes(rng, PERIOD * reps)).to(device)
+    qa_soa, qb_soa = qa.T.contiguous(), qb.T.contiguous()
+    got = iou_cu.rotated_iou_pairs_soa_periodic(qa_soa, qb_soa)
+    err_per = float((got - iou_sh.rotated_iou_pairs_soa_periodic(qa_soa, qb_soa)).abs().max())
+    if not err_per <= IOU_TOL:
+        raise AssertionError(f"periodic entry: max |kernel - plain| = {err_per} > {IOU_TOL}")
+    log(f"[2] special cases ok via the periodic entry; pairs at the forced-anchor shape "
+        f"({n_own}) max_abs_err={err_own:.3e}; periodic ({PERIOD} x {reps} = {PERIOD * reps} "
+        f"pairs) max_abs_err={err_per:.3e}")
 
     mat_pairs = groups * MAX_BOXES * MAX_BOXES
     out = {
@@ -165,16 +208,24 @@ def phase_kernel(device, card: str, groups: int, n_random: int) -> dict:
         "plain_ms": time_ms(lambda: iou_sh.rotated_iou_matrix(ma, ma), iters=10),
         "pairs_ms": time_ms(lambda: iou_cu.rotated_iou_pairs_soa(pa_soa, pb_soa), iters=50),
         "pairs_plain_ms": time_ms(lambda: iou_sh.rotated_iou(pa, pb), iters=10),
+        "err_pairs": max(err_pairs, err_own),
+        "own_ms": time_ms(lambda: iou_cu.rotated_iou_pairs_soa(oa_soa, ob_soa), iters=50),
+        "own_plain_ms": time_ms(lambda: iou_sh.rotated_iou(oa, ob), iters=10),
+        "err_per": err_per,
     }
     out["bound_ms"], out["bound_by"] = iou_bound(
         mat_pairs, 4 * (2 * groups * MAX_BOXES * 5 + mat_pairs))
     pairs_bound, pairs_by = iou_bound(n_random, iou_cu.BYTES_PER_PAIR * n_random)
+    out["own_bound_ms"], out["own_bound_by"] = iou_bound(n_own, iou_cu.BYTES_PER_PAIR * n_own)
     log(f"[2] rotated_iou_matrix {groups}x{MAX_BOXES}x{MAX_BOXES}: kernel {out['ms']:.4f} ms, "
         f"plain {out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}) "
         f"[{card}]")
     log(f"[2] rotated_iou_pairs {n_random}: kernel {out['pairs_ms']:.4f} ms, plain "
         f"{out['pairs_plain_ms']:.3f} ms, bound {pairs_bound:.4f} ms ({pairs_by}); "
         f"library_ms null: no single PyTorch call computes rotated-box IoU [{card}]")
+    log(f"[2] rotated_iou_pairs {n_own} (forced-anchor shape): kernel {out['own_ms']:.4f} ms, "
+        f"plain {out['own_plain_ms']:.3f} ms, bound {out['own_bound_ms']:.5f} ms "
+        f"({out['own_bound_by']}) [{card}]")
     return out
 
 
@@ -320,6 +371,216 @@ def phase_timing(device, cfg, variables, batch, card: str) -> dict:
     return out
 
 
+def _positive_cells(cells, wts, k: int):
+    """Per agent, the set of cells that hold a positive target."""
+    pos = wts.reshape(cells.shape + (k,)).any(-1)
+    return [set(c[m].tolist()) for c, m in zip(cells.reshape(-1, cells.shape[-1]),
+                                                pos.reshape(-1, cells.shape[-1]))]
+
+
+def phase_train(device, cfg, spec, batch_size: int, variables) -> dict:
+    """Drive prepare_batch and train_step on the card; check the launch
+    counts, one scene's assignment and loss against the port on the CPU,
+    finiteness, and that the loss falls over TRAIN_STEPS steps."""
+    import torch
+
+    from v2x_sim_tpu_torch.datasets.synthetic import generate_batch
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    module = DetModule(cfg, "disco", torch.float32, device=device)
+    module.load_flax_variables(variables)
+    batch = generate_batch(cfg, spec, batch_size, seed=2)
+
+    iou_cu.reset_launches()
+    prepared = module.prepare_batch(batch)
+    metrics = module.train_step(prepared)
+    torch.cuda.synchronize()
+    launches = {"periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches,
+                "pairs": iou_cu.rotated_iou_pairs_soa.launches}
+    if device.type == "cuda" and (launches["periodic"] != 2 or launches["pairs"] < 1):
+        raise AssertionError(f"one prepare_batch launched {launches}: want periodic 2, pairs >= 1")
+    if not all(bool(torch.isfinite(p.grad).all()) for p in module.model.parameters()):
+        raise AssertionError("non-finite gradients")
+    k = cfg.anchors.num_anchors
+    labels = prepared["labels"]
+    log(f"[5] prepare_batch + train_step at B={batch_size}: launches {launches}; positives "
+        f"{int((labels == 1).sum())}, ignored {int((labels == -1).sum())}, overflow cells "
+        f"{int(prepared['overflow'].sum())}; metrics "
+        + ", ".join(f"{n} {float(v):.4f}" for n, v in metrics.items()))
+
+    # Scene 0's assignment through the port on the CPU.
+    cpu = DetModule(cfg, "disco", torch.float32, device="cpu")
+    cpu.load_flax_variables(variables)
+    t0 = time.perf_counter()
+    bt = cpu.to_device({key: v[:1] for key, v in batch.items()})
+    ref = cpu.targets_from_gt(bt["gt_boxes"], bt["gt_mask"])
+    cpu_s = time.perf_counter() - t0
+    lab_d = labels[:1].cpu()
+    thr = torch.tensor([cfg.anchors.neg_iou_threshold, cfg.anchors.pos_iou_threshold])
+    near = ((ref.iou[..., None] - thr).abs() <= NEAR_THRESHOLD).any(-1)
+    differ = lab_d != ref.labels
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"labels differ card vs CPU away from the thresholds: "
+                             f"{int((differ & ~near).sum())} anchors")
+    cells_d = prepared["reg_cell"][:1, :, ::k].cpu()
+    wts_d, reg_d = prepared["reg_sp_w"][:1].cpu(), prepared["reg_sp_t"][:1].cpu()
+    over_d = prepared["overflow"][:1].cpu()
+    if not bool(differ.any()):
+        if not (torch.equal(cells_d, ref.cells) and torch.equal(over_d, ref.overflow)
+                and torch.equal(wts_d, ref.wts)):
+            raise AssertionError("cells, weights or overflow differ card vs CPU")
+    else:  # a cell may change sides only through an anchor at a threshold
+        flips = [set((torch.nonzero(d).flatten() // k).tolist()) for d in differ[0]]
+        for got, want, f in zip(_positive_cells(cells_d, wts_d, k),
+                                _positive_cells(ref.cells, ref.wts, k), flips):
+            if (got ^ want) - f:
+                raise AssertionError("positive cells differ card vs CPU away from the thresholds")
+    same = ((cells_d == ref.cells)[..., None].expand(cells_d.shape + (k,)).reshape(wts_d.shape)
+            & (wts_d == ref.wts))
+    err_reg = float((reg_d - ref.reg).abs()[same].max())
+    if not err_reg <= REG_TOL:
+        raise AssertionError(f"regression targets card vs CPU: max |d| = {err_reg} > {REG_TOL}")
+    log(f"[5] assignment card vs CPU, scene 0: labels equal at {int((~differ).sum())}/"
+        f"{differ.numel()} anchors (the rest within {NEAR_THRESHOLD} of a threshold; "
+        f"{int(near.sum())} anchors are), cells and overflow "
+        f"{'equal' if not bool(differ.any()) else 'equal up to those anchors'}, max |d reg| "
+        f"{err_reg:.3e}; CPU assignment {cpu_s:.1f} s")
+
+    # Scene 0's loss, forward only, on the card's targets and the card's
+    # current weights and stats: card vs CPU.
+    cpu.model.load_state_dict({key: v.cpu() for key, v in module.model.state_dict().items()})
+    scene = {key: v[:1] for key, v in prepared.items()}
+    with torch.no_grad():
+        loss_d = float(module.loss(scene, train=True)[0])
+        loss_c = float(cpu.loss({key: v.cpu() for key, v in scene.items()}, train=True)[0])
+    rel = abs(loss_d - loss_c) / abs(loss_c)
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"scene 0 loss card {loss_d} vs CPU {loss_c}: rel {rel} > {LOSS_RTOL}")
+    del cpu
+
+    losses = [float(metrics["loss"])]
+    for _ in range(TRAIN_STEPS - 1):
+        losses.append(float(module.train_step(prepared)["loss"]))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    log(f"[5] scene 0 loss card {loss_d:.6f} vs CPU {loss_c:.6f} (rel {rel:.2e}, tol {LOSS_RTOL}); "
+        f"loss over {TRAIN_STEPS} fp32 steps on one batch: "
+        + " ".join(f"{x:.4f}" for x in losses))
+    return {"launches": launches, "batch": batch}
+
+
+def phase_periodic_full(device, cfg, batch, card: str) -> dict:
+    """The periodic entry point at the training path's full shape, on the
+    batch's own nearest-GT lookups, against the plain version in chunks."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops import iou_sh
+    from v2x_sim_tpu_torch.ops.anchors import anchor_grid
+    from v2x_sim_tpu_torch.ops.assign import gt_soa, nearest_gt
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+
+    anchors = torch.from_numpy(anchor_grid(cfg)).to(device)
+    h, w, k, _ = anchors.shape
+    n = h * w * k
+    m = batch["gt_boxes"].shape[-2]
+    gt = torch.from_numpy(batch["gt_boxes"]).to(device).reshape(-1, m, 5)
+    mask = torch.from_numpy(batch["gt_mask"]).to(device).reshape(-1, m)
+    b = gt.shape[0]
+    c1 = nearest_gt(gt, mask, anchors)[0]
+    a_soa = anchors.reshape(n, 5).T.contiguous()
+    b_soa = gt_soa(gt, c1[..., None].expand(b, h, w, k).reshape(b, n))
+    nb = b * n
+    got = iou_cu.rotated_iou_pairs_soa_periodic(a_soa, b_soa)
+    ms = time_ms(lambda: iou_cu.rotated_iou_pairs_soa_periodic(a_soa, b_soa), iters=10)
+    ref = torch.empty_like(got)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for s in range(0, nb, CHUNK):
+        cols = torch.arange(s, min(nb, s + CHUNK), device=device) % n
+        ref[s:s + CHUNK] = iou_sh.rotated_iou(a_soa[:, cols].T, b_soa[:, s:s + CHUNK].T)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = float((got - ref).abs().max())
+    if not err <= IOU_TOL:
+        raise AssertionError(f"periodic entry at {nb} pairs: max |kernel - plain| = {err} > {IOU_TOL}")
+    bound_ms, bound_by = iou_bound(nb, 4 * 5 * n + iou_cu.PERIODIC_BYTES_PER_PAIR * nb)
+    log(f"[5] rotated_iou_pairs_periodic {b} x {n} = {nb} pairs (the assignment's first "
+        f"candidates): max_abs_err={err:.3e} over every pair (plain version in "
+        f"{-(-nb // CHUNK)} chunks of {CHUNK}); share with IoU > 0 {float((ref > 0).float().mean()):.4f}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_train_timing(device, cfg, variables, batch, card: str, periodic_ms: float) -> dict:
+    """Train throughput (step only; prepare + step), per-stage CUDA-event
+    times of one prepare + step, and peak memory, in fp32 and bf16."""
+    import torch
+
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    out = {}
+    b = batch["points"].shape[0]
+    for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        module = DetModule(cfg, "disco", dtype, device=device)
+        module.load_flax_variables(variables)
+        prepared = module.prepare_batch(batch)
+        for _ in range(2):
+            module.train_step(prepared)
+        torch.cuda.synchronize()
+        steps = 5
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            metrics = module.train_step(prepared)
+        torch.cuda.synchronize()
+        step_rate = b * steps / (time.perf_counter() - t0)
+        if not bool(torch.isfinite(metrics["loss"])):
+            raise AssertionError(f"non-finite {label} training loss")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            module.train_step(module.prepare_batch(batch))
+        torch.cuda.synchronize()
+        e2e_rate = b * 3 / (time.perf_counter() - t0)
+        del prepared, metrics
+
+        # Per-stage device times of one prepare + step, events between stages.
+        names = ("upload", "voxelize", "assign", "forward", "loss", "backward", "optimizer")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.reset_peak_memory_stats()
+        ev[0].record()
+        bt = module.to_device(batch)
+        ev[1].record()
+        occ = module.model_input(bt)
+        ev[2].record()
+        prep = {"occupancy": occ, "trans": bt["trans"], "agent_mask": bt["agent_mask"],
+                **module.targets(bt)}
+        ev[3].record()
+        module.optimizer.zero_grad(set_to_none=True)
+        o = module.model(occ, bt["trans"], bt["agent_mask"].to(torch.bool), train=True)
+        ev[4].record()
+        loss, _ = module.loss_from_output(o, prep)
+        ev[5].record()
+        loss.backward()
+        ev[6].record()
+        module.optimizer.step()
+        ev[7].record()
+        torch.cuda.synchronize()
+        stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        k2_share = 2 * periodic_ms / stages["assign"]
+        out[label] = {"step_scenes_per_s": step_rate, "e2e_scenes_per_s": e2e_rate,
+                      "stages_ms": stages, "peak_gib": peak_gib, "k2_share_of_assign": k2_share}
+        split = ", ".join(f"{n} {v:.3f}" for n, v in stages.items())
+        log(f"[6] {label}: train {step_rate:.2f} scenes/s step only, {e2e_rate:.2f} scenes/s "
+            f"prepare + step, at B={b} (host clock, synchronized); stages ms: {split}; the "
+            f"periodic kernel's 2 launches are {100 * k2_share:.1f}% of assign; peak memory "
+            f"{peak_gib:.2f} GiB [{card}]")
+        del module, bt, occ, prep, o, loss
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -345,26 +606,56 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
 
-    phase_build()
-    k = phase_kernel(device, card, groups=BATCH * 6, n_random=1 << 20)
-
     cfg = Config()  # production geometry: 256x256x13, 6 agents, fusion at stage 3
     spec = SyntheticSpec(points_per_agent=8192, num_vehicles=12, max_gt=32)
+    phase_build()
+    k = phase_kernel(device, card, groups=BATCH * cfg.num_agents, n_random=1 << 20,
+                     own_pairs=spec.max_gt * cfg.anchors.num_anchors)
+
     variables = random_flax_variables(DetModel(cfg, "disco"), seed=0)
     main_path = phase_main_path(device, cfg, spec, BATCH, variables)
     phase_timing(device, cfg, variables, main_path["batches"][0], card)
+    predict_launches = main_path["launches"]
+    del main_path
+    train = phase_train(device, cfg, spec, BATCH, variables)
+    per = phase_periodic_full(device, cfg, train["batch"], card)
+    phase_train_timing(device, cfg, variables, train["batch"], card, per["ms"])
 
     kernels = [{
         "name": "rotated_iou_matrix",
         "route": "cuda",
         "source": "v2x_sim_tpu_torch/csrc/rotated_iou.cu",
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
-        "launches": main_path["launches"],
+        "launches": predict_launches,
         "max_abs_err": k["err_mat"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "rotated_iou_pairs",
+        "route": "cuda",
+        "source": "v2x_sim_tpu_torch/csrc/rotated_iou.cu",
+        "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
+        "launches": train["launches"]["pairs"],
+        "max_abs_err": k["err_pairs"],
+        "ms": k["own_ms"],
+        "plain_ms": k["own_plain_ms"],
+        "bound_ms": k["own_bound_ms"],
+        "bound_by": k["own_bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "rotated_iou_pairs_periodic",
+        "route": "cuda",
+        "source": "v2x_sim_tpu_torch/csrc/rotated_iou.cu",
+        "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:199",
+        "launches": train["launches"]["periodic"],
+        "max_abs_err": max(k["err_per"], per["err"]),
+        "ms": per["ms"],
+        "plain_ms": per["plain_ms"],
+        "bound_ms": per["bound_ms"],
+        "bound_by": per["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

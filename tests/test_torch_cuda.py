@@ -1,6 +1,6 @@
-"""The rotated-IoU kernel wrapper (ops/cuda/iou_cu.py): its CPU route,
-its input checks, and — on a CUDA card only — the CUDA kernel against the
-plain PyTorch version.
+"""The rotated-IoU kernel wrapper (ops/cuda/iou_cu.py), all three entry
+points: their CPU route, their input checks, and — on a CUDA card only —
+the CUDA kernel against the plain PyTorch version.
 
 This file imports neither JAX nor tests/conftest.py's setup, so it runs
 on the card's machine, which has no JAX:
@@ -61,6 +61,55 @@ def test_wrapper_rejects_malformed_operands():
         iou_cu.rotated_iou_pairs_soa(torch.zeros(5, 3), torch.zeros(5, 4))
     with pytest.raises(ValueError):
         iou_cu.rotated_iou_matrix(a, a.to("meta"))  # mixed devices
+
+
+def test_periodic_wrapper_takes_plain_version_for_cpu_tensors():
+    rng = np.random.default_rng(5)
+    n, reps = 37, 4  # a period that tiles nothing
+    a = torch.from_numpy(_random_boxes(rng, n))
+    b = torch.from_numpy(_random_boxes(rng, n * reps))
+    before = iou_cu.rotated_iou_pairs_soa_periodic.launches
+    got = iou_cu.rotated_iou_pairs_soa_periodic(a.T.contiguous(), b.T.contiguous())
+    assert iou_cu.rotated_iou_pairs_soa_periodic.launches == before
+    np.testing.assert_array_equal(got.numpy(), iou_sh.rotated_iou(a.repeat(reps, 1), b).numpy())
+
+
+def test_periodic_wrapper_rejects_malformed_operands():
+    with pytest.raises(ValueError):
+        iou_cu.rotated_iou_pairs_soa_periodic(torch.zeros(5, 3), torch.zeros(5, 7))  # 7 % 3
+    with pytest.raises(ValueError):
+        iou_cu.rotated_iou_pairs_soa_periodic(torch.zeros(4, 3), torch.zeros(4, 6))  # not 5 fields
+    with pytest.raises(ValueError):
+        iou_cu.rotated_iou_pairs_soa_periodic(torch.zeros(5, 0), torch.zeros(5, 0))  # no period
+    with pytest.raises(ValueError):
+        iou_cu.rotated_iou_pairs_soa_periodic(torch.zeros(5, 3), torch.zeros(5, 6, device="meta"))
+
+
+def test_reset_launches_zeroes_every_entry_point():
+    for fn in (iou_cu.rotated_iou_pairs_soa, iou_cu.rotated_iou_matrix,
+               iou_cu.rotated_iou_pairs_soa_periodic):
+        fn.launches = 3
+    iou_cu.reset_launches()
+    assert (iou_cu.rotated_iou_pairs_soa.launches, iou_cu.rotated_iou_matrix.launches,
+            iou_cu.rotated_iou_pairs_soa_periodic.launches) == (0, 0, 0)
+
+
+@pytest.mark.gpu
+def test_periodic_kernel_matches_plain_on_card(cuda_device):
+    """The periodic entry point at a period that is not a multiple of the
+    TPU's 8192-pair tile, against the plain version; atol 1e-4 as below."""
+    rng = np.random.default_rng(6)
+    n, reps = 4099, 16
+    a = torch.from_numpy(_random_boxes(rng, n)).to(cuda_device)
+    b = torch.from_numpy(_random_boxes(rng, n * reps)).to(cuda_device)
+    launches = iou_cu.rotated_iou_pairs_soa_periodic.launches
+    got = iou_cu.rotated_iou_pairs_soa_periodic(a.T.contiguous(), b.T.contiguous())
+    torch.cuda.synchronize()
+    assert iou_cu.rotated_iou_pairs_soa_periodic.launches == launches + 1
+    assert got.shape == (n * reps,)
+    torch.testing.assert_close(got, iou_sh.rotated_iou(a.repeat(reps, 1), b), atol=1e-4, rtol=0)
+    with pytest.raises(TypeError):
+        iou_cu.rotated_iou_pairs_soa_periodic(a.T.double(), b.T.double())
 
 
 @pytest.mark.gpu

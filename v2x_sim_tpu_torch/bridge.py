@@ -1,7 +1,8 @@
-"""Weight bridge: flax ``{params, batch_stats}`` tree -> the port's state_dict.
+"""Weight bridge between a flax ``{params, batch_stats}`` tree and the port.
 
-One weight tree serves both packages. This is the inverse of the layout
-rules of ``v2x_sim_tpu/train/torch_convert.py``:
+One weight tree serves both packages, in both directions, and optax's
+Adam state loads into the port's optimizer. The layout rules are the
+inverse of those of ``v2x_sim_tpu/train/torch_convert.py``:
 
   * conv ``kernel`` (kh, kw, in, out)   -> ``weight`` (out, in, kh, kw)
   * BatchNorm ``scale``/``bias``        -> ``weight``/``bias``
@@ -27,10 +28,6 @@ from v2x_sim_tpu_torch.models.backbone import STAGE_CHANNELS
 
 _BLOCK_PARTS = (("conv1", "Conv_0"), ("bn1", "BatchNorm_0"),
                 ("conv2", "Conv_1"), ("bn2", "BatchNorm_1"))
-
-_BN_LEAVES = (("weight", "params", "scale"), ("bias", "params", "bias"),
-              ("running_mean", "batch_stats", "mean"),
-              ("running_var", "batch_stats", "var"))
 
 
 def key_map(mode: str = "disco") -> Dict[str, Tuple[str, ...]]:
@@ -67,34 +64,107 @@ def _leaf_paths(tree: Mapping[str, Any], prefix=()) -> set:
     return out
 
 
+def _param_tensors(params: Mapping[str, Any], mode: str, used: set) -> Dict[str, torch.Tensor]:
+    """Port parameter name -> float32 tensor from a flax ``params`` tree, or
+    from any tree of its shape (optax's Adam moments). Records each flax
+    path it reads in ``used``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for prefix, path in key_map(mode).items():
+        node = _node(params, path)
+        weight = "scale" if "scale" in node else "kernel"  # BatchNorm or conv
+        for tleaf, fleaf in (("weight", weight), ("bias", "bias")):
+            if fleaf == "bias" and "bias" not in node:  # the convs of ConvBlock
+                continue
+            arr = np.asarray(node[fleaf], dtype=np.float32)
+            if fleaf == "kernel":
+                arr = arr.transpose(3, 2, 0, 1)
+            sd[f"{prefix}.{tleaf}"] = torch.from_numpy(arr.copy())
+            used.add(path + (fleaf,))
+    return sd
+
+
 def state_dict_from_flax(variables: Mapping[str, Any], mode: str = "disco") -> Dict[str, torch.Tensor]:
     """Convert a flax ``{"params", "batch_stats"}`` tree into a state_dict
     for ``DetModel(config, mode)``. Raises KeyError on a missing leaf and
     ValueError on a flax leaf the table does not consume."""
     params, stats = variables["params"], variables.get("batch_stats", {})
-    trees = {"params": params, "batch_stats": stats}
     used = {"params": set(), "batch_stats": set()}
-    sd: Dict[str, torch.Tensor] = {}
+    sd = _param_tensors(params, mode, used["params"])
     for prefix, path in key_map(mode).items():
-        node = _node(params, path)
-        if "scale" in node:  # BatchNorm
-            for tleaf, coll, fleaf in _BN_LEAVES:
-                arr = np.asarray(_node(trees[coll], path)[fleaf], dtype=np.float32)
-                sd[f"{prefix}.{tleaf}"] = torch.from_numpy(arr.copy())
-                used[coll].add(path + (fleaf,))
-            sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+        if "scale" not in _node(params, path):
             continue
-        kernel = np.asarray(node["kernel"], dtype=np.float32)
-        sd[f"{prefix}.weight"] = torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy())
-        used["params"].add(path + ("kernel",))
-        if "bias" in node:
-            sd[f"{prefix}.bias"] = torch.from_numpy(np.asarray(node["bias"], np.float32).copy())
-            used["params"].add(path + ("bias",))
-    for coll, tree in trees.items():
+        for tleaf, fleaf in (("running_mean", "mean"), ("running_var", "var")):
+            arr = np.asarray(_node(stats, path)[fleaf], dtype=np.float32)
+            sd[f"{prefix}.{tleaf}"] = torch.from_numpy(arr.copy())
+            used["batch_stats"].add(path + (fleaf,))
+        sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    for coll, tree in (("params", params), ("batch_stats", stats)):
         extra = _leaf_paths(tree) - used[coll]
         if extra:
             raise ValueError(f"flax {coll} leaves with no port module: {sorted(extra)}")
     return sd
+
+
+#: state_dict leaf -> (flax collection, flax leaf); conv weights are 4-d.
+_FLAX_LEAF = {"bias": ("params", "bias"), "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+
+
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor], mode: str = "disco") -> Dict[str, Any]:
+    """Inverse of :func:`state_dict_from_flax`: a numpy ``{params,
+    batch_stats}`` tree from the port's state_dict, or from any subset of
+    its keys (``{name: p.grad}`` gives the gradients as a flax tree).
+    Leaves are float32, or float64 from a float64 model.
+    ``num_batches_tracked`` has no flax leaf and is dropped."""
+    kmap = key_map(mode)
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        prefix, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = t.detach().cpu().to(torch.promote_types(t.dtype, torch.float32)).numpy()
+        if leaf == "weight":
+            coll, fleaf = ("params", "kernel") if arr.ndim == 4 else ("params", "scale")
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+        else:
+            coll, fleaf = _FLAX_LEAF[leaf]
+        node = out[coll]
+        for k in kmap[prefix]:
+            node = node.setdefault(k, {})
+        node[fleaf] = arr.copy()
+    return out
+
+
+def adam_state_from_optax(opt_state: Any, module: Any) -> None:
+    """Load optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``), found
+    anywhere in ``opt_state`` (a bare Adam state or a chain's tuple), into
+    ``module.optimizer`` (``torch.optim.Adam`` over ``module.model``), so
+    a run of the JAX package continues in the port step for step."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optimizer state")
+    mode = module.model.mode
+    mu = _param_tensors(adam.mu, mode, set())
+    nu = _param_tensors(adam.nu, mode, set())
+    step = float(np.asarray(adam.count))
+    for name, p in module.model.named_parameters():
+        module.optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(p),
+            "exp_avg_sq": nu[name].to(p),
+        }
+
+
+def _find_adam(state: Any) -> Any:
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
 
 
 def random_flax_variables(model: torch.nn.Module, seed: int) -> Dict[str, Any]:

@@ -1,8 +1,10 @@
 // Exact rotated-box IoU on Hopper (sm_90a), one thread per box pair.
 //
-// Replaces the Pallas TPU kernel v2x_sim_tpu/ops/pallas/iou_pl.py::
+// Replaces the Pallas TPU kernels v2x_sim_tpu/ops/pallas/iou_pl.py::
 // rotated_iou_pairs_soa (pallas_call at :149, body _iou_tile at :42) and
-// repeats its arithmetic step for step: corners of both quads, quad A
+// rotated_iou_pairs_soa_periodic (pallas_call at :199, the same body with
+// operand A's block index taken modulo the period), and repeats their
+// arithmetic step for step: corners of both quads, quad A
 // clipped by B's 4 edges in an 8-slot polygon padded by repeating its
 // last vertex, a 16-entry (kept vertex, crossing) stream per clip stage
 // compacted back to 8 slots in order, then the shoelace area and
@@ -19,8 +21,13 @@
 // and is fully unrolled, and the compaction writes slot k through a
 // select chain (never a run-time array index, which would put the polygon
 // in local memory). Neighbouring threads take neighbouring pairs, so the
-// SoA loads of entry point (a) coalesce; in entry point (b) a warp shares
-// box i and reads 32 consecutive boxes j.
+// SoA loads of entry points (a) and (c) coalesce; in entry point (b) a
+// warp shares box i and reads 32 consecutive boxes j. Entry point (c)
+// reads the anchor table once per repeat: at production geometry it is
+// 5 x 393,216 floats (7.9 MB), which stays in the 50 MB L2 across the B
+// repeats, so only operand B and the output cross HBM and no shared-memory
+// staging is needed. Its one 64-bit remainder per pair is integer work,
+// not counted below.
 //
 // Built without --use_fast_math: parity with the plain version needs the
 // precise sinf/cosf and IEEE division.
@@ -160,6 +167,18 @@ rotated_iou_matrix_kernel(const float* __restrict__ a, const float* __restrict__
   out[q] = pair_iou(ba[0], ba[1], ba[2], ba[3], ba[4], bb[0], bb[1], bb[2], bb[3], bb[4]);
 }
 
+// (c) Periodic pairs, field-major: pair p takes box A from column p % n of
+// the (5, n) table a and box B from column p of the (5, nb) array b.
+__global__ void __launch_bounds__(kThreads)
+rotated_iou_pairs_periodic_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                  float* __restrict__ out, int64_t n, int64_t nb) {
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= nb) return;
+  const int64_t i = p % n;
+  out[p] = pair_iou(a[i], a[n + i], a[2 * n + i], a[3 * n + i], a[4 * n + i],
+                    b[p], b[nb + p], b[2 * nb + p], b[3 * nb + p], b[4 * nb + p]);
+}
+
 unsigned int blocks_for(int64_t total) {
   return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
 }
@@ -169,7 +188,8 @@ unsigned int blocks_for(int64_t total) {
 extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// as an int (0 = launched). The caller guarantees n, g*n*m in [1, 2^31 * 256).
+// as an int (0 = launched). The caller guarantees n, g*n*m, nb in
+// [1, 2^31 * 256), and nb a multiple of n.
 int v2x_rotated_iou_pairs(const float* a, const float* b, float* out, int64_t n, void* stream) {
   rotated_iou_pairs_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, b, out, n);
@@ -180,6 +200,13 @@ int v2x_rotated_iou_matrix(const float* a, const float* b, float* out, int64_t g
                            int64_t m, void* stream) {
   rotated_iou_matrix_kernel<<<blocks_for(g * n * m), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(a, b, out, g, n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int v2x_rotated_iou_pairs_periodic(const float* a, const float* b, float* out, int64_t n,
+                                   int64_t nb, void* stream) {
+  rotated_iou_pairs_periodic_kernel<<<blocks_for(nb), kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(a, b, out, n, nb);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,13 @@ Module names follow the reference torch graph, so one flax
 Mixed precision follows the JAX package: parameters stay float32 and are
 cast to the activation dtype per op; BatchNorm runs on its float32
 running stats (eps 1e-5) and returns the activation dtype.
+
+``train=True`` runs BatchNorm as flax does in training: batch statistics
+in float32 (float64 for float64 maps) over every folded map, padded
+agents included; the biased variance E[x^2] - E[x]^2 clipped at 0; and
+running stats updated in place as 0.9 * old + 0.1 * batch, with that
+biased variance. (PyTorch's own training BatchNorm would store the
+unbiased variance.)
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import torch.nn.functional as F
 STAGE_CHANNELS: Tuple[int, ...] = (32, 64, 128, 256, 512)
 
 BN_EPS = 1e-5
+#: flax's BatchNorm momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch.
+BN_MOMENTUM = 0.9
 
 
 def width_mult(mult: float) -> Tuple[int, ...]:
@@ -41,13 +50,25 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding)
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Inference BatchNorm on the float32 running stats; PyTorch computes
-    a bf16 input's normalization in float32 and returns bf16."""
-    return F.batch_norm(
-        x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-        training=False, eps=bn.eps,
-    )
+def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False) -> torch.Tensor:
+    """BatchNorm of an NCHW map. Inference uses the float32 running stats
+    (PyTorch normalizes a bf16 input in float32 and returns bf16);
+    training uses the batch statistics with flax's semantics (see the
+    module docstring) and updates the running stats."""
+    if not train:
+        return F.batch_norm(
+            x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+            training=False, eps=bn.eps,
+        )
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=(0, 2, 3))
+    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+        bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+    inv = bn.weight * torch.rsqrt(var + bn.eps)
+    shift = bn.bias - mean * inv
+    return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
 class ConvBlock(nn.Module):
@@ -64,10 +85,10 @@ class ConvBlock(nn.Module):
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
         self.bn2 = nn.BatchNorm2d(cout, eps=BN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """NCHW in, NCHW out."""
-        x = torch.relu(_bn(_conv(x, self.conv1), self.bn1))
-        return torch.relu(_bn(_conv(x, self.conv2), self.bn2))
+        x = torch.relu(_bn(_conv(x, self.conv1), self.bn1, train))
+        return torch.relu(_bn(_conv(x, self.conv2), self.bn2, train))
 
 
 class STPNEncoder(nn.Module):
@@ -81,11 +102,11 @@ class STPNEncoder(nn.Module):
             cin = ch
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
         """NCHW input in the activation dtype -> list of NCHW maps."""
         feats = []
         for block in self.blocks:
-            x = block(x)
+            x = block(x, train)
             feats.append(x)
         return feats
 
@@ -107,14 +128,14 @@ class STPNDecoder(nn.Module):
             for i in range(len(chs) - 1)
         )
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, feats: Sequence[torch.Tensor], train: bool = False) -> torch.Tensor:
         x = feats[-1]
         for i, block in enumerate(self.blocks):
             skip = feats[-2 - i]
             x = F.interpolate(
                 x, size=skip.shape[-2:], mode="bilinear", align_corners=False
             )
-            x = block(torch.cat([x, skip.to(x.dtype)], dim=1))
+            x = block(torch.cat([x, skip.to(x.dtype)], dim=1), train)
         return x
 
 

@@ -49,8 +49,9 @@ class DiscoFusion(nn.Module):
         self.edge_hidden = nn.Conv2d(2 * channels, hidden, 1)
         self.edge_score = nn.Conv2d(hidden, 1, 1)
 
-    def forward(self, feats, trans, mask) -> torch.Tensor:
-        """feats (B, A, h, w, C) NHWC -> fused (B, A, h, w, C)."""
+    def forward(self, feats, trans, mask, train: bool = False) -> torch.Tensor:
+        """feats (B, A, h, w, C) NHWC -> fused (B, A, h, w, C). ``train`` is
+        accepted for the JAX signature; the fusion has no BatchNorm."""
         c = feats.shape[-1]
         dt = feats.dtype
         warped = warp_neighbors(feats, trans, mask, self.grid)

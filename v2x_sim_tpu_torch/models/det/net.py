@@ -80,28 +80,30 @@ class DetModel(nn.Module):
 
     # The forward pass in stages, so a profiler can time each one.
 
-    def encode(self, occupancy: torch.Tensor) -> List[torch.Tensor]:
-        """(B, A, H, W, D) -> pyramid of (B*A, C, h, w) maps (channels-last memory)."""
-        return self.encoder(fold_agents(occupancy).permute(0, 3, 1, 2))
+    # ``train`` selects BatchNorm's training semantics (models/backbone.py).
 
-    def fuse(self, feats: List[torch.Tensor], trans, agent_mask) -> List[torch.Tensor]:
+    def encode(self, occupancy: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
+        """(B, A, H, W, D) -> pyramid of (B*A, C, h, w) maps (channels-last memory)."""
+        return self.encoder(fold_agents(occupancy).permute(0, 3, 1, 2), train)
+
+    def fuse(self, feats: List[torch.Tensor], trans, agent_mask, train: bool = False) -> List[torch.Tensor]:
         """Fuse the fusion-layer map across agents (no-op for lowerbound)."""
         if self.mode == "lowerbound":
             return feats
         k = self.config.fusion_layer
         a = agent_mask.shape[1]
         f = unfold_agents(feats[k].permute(0, 2, 3, 1), a)  # (B, A, h, w, C)
-        fused = self.fusion(f, trans, agent_mask)
+        fused = self.fusion(f, trans, agent_mask, train)
         feats = list(feats)
         feats[k] = fold_agents(fused).permute(0, 3, 1, 2)
         return feats
 
-    def decode_heads(self, feats: List[torch.Tensor], num_agents: int) -> DetOutput:
-        decoded = self.decoder(feats)
+    def decode_heads(self, feats: List[torch.Tensor], num_agents: int, train: bool = False) -> DetOutput:
+        decoded = self.decoder(feats, train)
         cls = unfold_agents(self.cls_head(decoded), num_agents)
         reg = unfold_agents(self.reg_head(decoded), num_agents)
         return DetOutput(cls, reg)
 
-    def forward(self, occupancy, trans, agent_mask) -> DetOutput:
-        feats = self.fuse(self.encode(occupancy), trans, agent_mask)
-        return self.decode_heads(feats, occupancy.shape[1])
+    def forward(self, occupancy, trans, agent_mask, train: bool = False) -> DetOutput:
+        feats = self.fuse(self.encode(occupancy, train), trans, agent_mask, train)
+        return self.decode_heads(feats, occupancy.shape[1], train)

@@ -95,3 +95,13 @@ def rotated_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
 def rotated_iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     """(..., N, 5) x (..., M, 5) -> (..., N, M) exact IoU."""
     return rotated_iou(boxes_a[..., :, None, :], boxes_b[..., None, :, :])
+
+
+def rotated_iou_pairs_soa_periodic(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.Tensor:
+    """(5, n) x (5, B*n) field-major boxes -> (B*n,) IoU, where pair p
+    takes box A from column p % n: the anchor table against B stacked
+    blocks of per-anchor GT boxes."""
+    n, nb = a_soa.shape[1], b_soa.shape[1]
+    if n == 0 or nb % n:
+        raise ValueError(f"pair count {nb} is not a multiple of the period {n}")
+    return rotated_iou(a_soa.T.repeat(nb // n, 1), b_soa.T)

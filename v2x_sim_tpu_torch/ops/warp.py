@@ -31,8 +31,8 @@ def warp_all_pairs(feats: torch.Tensor, trans: torch.Tensor, grid: GridConfig) -
     Returns:
       (B, A, A, H, W, C) where out[b, i, j] = agent j's features rendered
       in agent i's frame, in the dtype of ``feats``. The sample itself
-      runs in float32: normalized coordinates in bf16 would be off by a
-      tenth of a cell.
+      runs in float32 at least, and the coordinates in float32: normalized
+      coordinates in bf16 would be off by a tenth of a cell.
     """
     b, a, h, w, c = feats.shape
     dev = feats.device
@@ -55,8 +55,9 @@ def warp_all_pairs(feats: torch.Tensor, trans: torch.Tensor, grid: GridConfig) -
     # column coordinate comes first.
     gxn = (2.0 * py + 1.0) / w - 1.0
     gyn = (2.0 * px + 1.0) / h - 1.0
-    sample_grid = torch.stack([gxn, gyn], dim=-1).reshape(b * a, a * h, w, 2)
-    src = feats.reshape(b * a, h, w, c).permute(0, 3, 1, 2).to(torch.float32)
+    src_dtype = torch.promote_types(feats.dtype, torch.float32)
+    sample_grid = torch.stack([gxn, gyn], dim=-1).reshape(b * a, a * h, w, 2).to(src_dtype)
+    src = feats.reshape(b * a, h, w, c).permute(0, 3, 1, 2).to(src_dtype)
     out = F.grid_sample(
         src, sample_grid, mode="bilinear", padding_mode="zeros", align_corners=False
     )  # (B*Aj, C, Ai*h, w)

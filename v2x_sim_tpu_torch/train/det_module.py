@@ -1,17 +1,25 @@
-"""Detection task module: the predict path.
+"""Detection task module: the predict path and the training step.
 
-Port of the predict half of ``v2x_sim_tpu/train/det_module.py::DetModule``:
-voxelize the padded points, run the model, decode the top-K candidates
-per agent, and suppress them with rotated NMS, all on one device. Training
-is not ported yet (ROADMAP.md queue 1 item 7).
+Port of ``v2x_sim_tpu/train/det_module.py::DetModule`` without KD, MGDA,
+``use_vis`` or data parallelism:
 
-The model runs in the plain layout; the JAX package's blocked heads and
-lazy regression decode compute the same values for the TPU.
+  * ``predict``: voxelize the padded points, run the model, decode the
+    top-K candidates per agent, suppress them with rotated NMS;
+  * ``prepare_batch``: voxelize and assign sparse anchor targets once per
+    batch (the rotated-IoU kernels run here);
+  * ``train_step``: forward in BatchNorm's training mode, focal and sparse
+    smooth-L1 losses normalized by the positive count, backward, optional
+    global-norm clipping, one Adam step.
+
+The model runs in the plain layout, with targets in plain (H, W, K)
+anchor order; the JAX package's blocked heads and lazy regression decode
+compute the same values for the TPU, and the loss sums do not depend on
+the anchor order.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,14 +27,19 @@ import torch
 from v2x_sim_tpu_torch import resolve_device
 from v2x_sim_tpu_torch.bridge import state_dict_from_flax
 from v2x_sim_tpu_torch.configs.config import Config
-from v2x_sim_tpu_torch.models.det.net import DetModel, check_mode
+from v2x_sim_tpu_torch.models.det.net import DetModel, DetOutput, check_mode
 from v2x_sim_tpu_torch.ops.anchors import anchor_grid
+from v2x_sim_tpu_torch.ops.assign import SparseTargets, assign_targets_batched, labels_from_sparse_idx
 from v2x_sim_tpu_torch.ops.nms import NMSResult, batched_nms
 from v2x_sim_tpu_torch.ops.postprocess import decode_topk
 from v2x_sim_tpu_torch.ops.voxelize import voxelize_batch
+from v2x_sim_tpu_torch.utils.losses import smooth_l1_loss_sparse_sum, softmax_focal_loss_sum
 
-#: Batch keys the predict path reads.
-BATCH_KEYS = ("points", "point_mask", "trans", "agent_mask", "occupancy")
+#: Batch keys the module reads: inputs, GT, and targets baked offline.
+BATCH_KEYS = (
+    "points", "point_mask", "trans", "agent_mask", "occupancy", "gt_boxes", "gt_mask",
+    "tgt_labels", "tgt_pos_idx", "tgt_ign_idx", "tgt_cells", "tgt_reg", "tgt_wts",
+)
 
 
 class DetModule:
@@ -38,8 +51,13 @@ class DetModule:
         other modes raise NotImplementedError).
       compute_dtype: activation dtype. With bfloat16, activations run in
         bf16 from the encoder input on, parameters stay float32, and the
-        decode casts to float32.
+        decode and the losses run in float32.
       device: None means the CUDA card, and raises when there is none.
+      learning_rate: Adam's step size (betas 0.9, 0.999, eps 1e-8: optax's
+        defaults).
+      grad_clip: clip gradients to this global norm before Adam, by optax's
+        rule; 0 disables.
+      width_mult: uniform scale of the STPN stage widths (1.0 = 32..512).
     """
 
     def __init__(
@@ -48,6 +66,9 @@ class DetModule:
         mode: str = "disco",
         compute_dtype: torch.dtype = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
+        learning_rate: float = 1e-3,
+        grad_clip: float = 0.0,
+        width_mult: float = 1.0,
     ):
         check_mode(mode)
         self.config = config
@@ -56,12 +77,16 @@ class DetModule:
         self.device = resolve_device(device)
         # Activations arrive channels-last (permuted NHWC views), so the
         # conv weights take the same memory format.
-        self.model = DetModel(config, mode).to(self.device, memory_format=torch.channels_last)
-        self.model.eval()
+        self.model = DetModel(config, mode, width_mult).to(
+            self.device, memory_format=torch.channels_last)
+        self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
         self.anchors = torch.from_numpy(anchor_grid(config)).to(self.device)
         # 3x3 score peaks before top-K at <= 0.5 m voxels, where one
         # vehicle saturates many anchors; off at coarse grids.
         self.peak_window = 3 if config.grid.voxel_size[0] <= 0.5 else 0
+        self.grad_clip = grad_clip
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
     def load_flax_variables(self, variables: Mapping[str, Any]) -> None:
         """Load a flax ``{params, batch_stats}`` tree (numpy leaves)."""
@@ -69,7 +94,7 @@ class DetModule:
         self.model.load_state_dict(sd, strict=True)
 
     def to_device(self, batch: Mapping[str, Any]) -> dict:
-        """The predict path's batch entries as tensors on this device."""
+        """The batch entries the module reads, as tensors on this device."""
         return {
             k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(self.device)
             for k, v in batch.items()
@@ -108,3 +133,111 @@ class DetModule:
             peak_window=self.peak_window,
         )
         return batched_nms(boxes, scores, valid, nms_iou)
+
+    # ------------------------------------------------------------------ #
+    # Training
+    # ------------------------------------------------------------------ #
+
+    def targets_from_gt(self, gt_boxes: torch.Tensor, gt_mask: torch.Tensor) -> SparseTargets:
+        """Sparse anchor assignment of (B, A, M, 5) GT over all B*A
+        agent-scenes at once; every field comes back as (B, A, ...)."""
+        b, a, m, _ = gt_boxes.shape
+        sp = assign_targets_batched(
+            gt_boxes.reshape(b * a, m, 5), gt_mask.reshape(b * a, m), self.anchors, self.config)
+        return SparseTargets(*(t.reshape((b, a) + t.shape[1:]) for t in sp))
+
+    @torch.no_grad()
+    def prepare_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """Per-batch preprocessing on the device: ``occupancy``, ``trans``,
+        ``agent_mask`` and the training targets of :meth:`targets`."""
+        bt = self.to_device(batch)
+        return {"occupancy": self.model_input(bt), "trans": bt["trans"],
+                "agent_mask": bt["agent_mask"], **self.targets(bt)}
+
+    @torch.no_grad()
+    def targets(self, bt: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Training targets of a batch on this device, assigned from GT
+        (``gt_boxes``, ``gt_mask``) or baked offline (``tgt_pos_idx``/
+        ``tgt_ign_idx`` or ``tgt_labels``, with ``tgt_cells``, ``tgt_reg``,
+        ``tgt_wts``).
+
+        Returns flat ``labels`` (B, A, H*W*K) int8, ``reg_cell``/``reg_lane``
+        (B, A, Pc*K), ``reg_sp_t`` (B, A, Pc*K, 6) and ``reg_sp_w``
+        (B, A, Pc*K) float32, and, from GT, ``overflow`` (B, A).
+        """
+        h, w = self.config.grid.bev_shape
+        k = self.config.anchors.num_anchors
+        out = {}
+        if "tgt_labels" in bt or "tgt_pos_idx" in bt:
+            labels = bt["tgt_labels"] if "tgt_labels" in bt else labels_from_sparse_idx(
+                bt["tgt_pos_idx"], bt["tgt_ign_idx"], h * w * k)
+            cells, reg, wts = bt["tgt_cells"], bt["tgt_reg"], bt["tgt_wts"]
+        else:
+            sp = self.targets_from_gt(bt["gt_boxes"], bt["gt_mask"])
+            labels, cells, reg, wts = sp.labels, sp.cells, sp.reg, sp.wts
+            out["overflow"] = sp.overflow
+        b, a, pc = cells.shape
+        out["labels"] = labels.reshape(b, a, -1).to(torch.int8)
+        # (cell, lane) of each target in the heads' (H*W, K*6) folding.
+        out["reg_cell"] = cells.long()[..., None].expand(b, a, pc, k).reshape(b, a, pc * k)
+        out["reg_lane"] = torch.arange(k, device=self.device).repeat(pc).expand(b, a, pc * k)
+        # Baked targets may arrive compressed (bf16 reg, int8 wts).
+        out["reg_sp_t"] = reg.float()
+        out["reg_sp_w"] = wts.float()
+        return out
+
+    def loss_from_output(
+        self, out: DetOutput, prepared: Mapping[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Focal + sparse smooth-L1 loss of a forward's output against the
+        prepared targets, with padded agents masked out of both terms, each
+        normalized by max(positive count, 1)."""
+        am = prepared["agent_mask"].to(torch.bool)
+        b, a = am.shape
+        labels = torch.where(am[:, :, None], prepared["labels"].reshape(b, a, -1), -1)
+        sp_w = prepared["reg_sp_w"] * am[:, :, None].float()
+        cls_sum, num_pos = softmax_focal_loss_sum(out.cls_logits, labels)
+        r_cells = out.reg.shape[2] * out.reg.shape[3]
+        loc_sum, _ = smooth_l1_loss_sparse_sum(
+            out.reg.reshape(b, a, r_cells, -1), prepared["reg_cell"], prepared["reg_lane"],
+            prepared["reg_sp_t"], sp_w)
+        denom = num_pos.clamp(min=1.0)
+        cls_loss, loc_loss = cls_sum / denom, loc_sum / denom
+        loss = cls_loss + loc_loss
+        return loss, {"cls_loss": cls_loss, "loc_loss": loc_loss, "loss": loss}
+
+    def loss(
+        self, prepared: Mapping[str, torch.Tensor], train: bool = True
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Forward (BatchNorm in training mode when ``train``, which updates
+        the running stats) and the loss; returns (loss, metrics)."""
+        am = prepared["agent_mask"].to(torch.bool)
+        out = self.model(prepared["occupancy"], prepared["trans"], am, train=train)
+        return self.loss_from_output(out, prepared)
+
+    def train_step(self, prepared: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One optimization step on a prepared batch. Returns the metrics
+        as device tensors; nothing waits for the device."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = self.loss(prepared, train=True)
+        loss.backward()
+        if self.grad_clip > 0.0:
+            clip_by_global_norm_(
+                [p.grad for p in self.model.parameters() if p.grad is not None], self.grad_clip)
+        self.optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: every gradient becomes
+    g / norm * max_norm when the global norm reaches max_norm, and stays as
+    it is below (no epsilon, unlike torch's clip_grad_norm_). Returns the
+    norm, without a host sync."""
+    grads = list(grads)
+    acc = torch.promote_types(grads[0].dtype, torch.float32)
+    norm = torch.stack([g.to(acc).square().sum() for g in grads]).sum().sqrt()
+    clip = norm >= max_norm
+    for g in grads:
+        g.copy_(torch.where(clip, g / norm * max_norm, g))
+    return norm
