@@ -134,3 +134,73 @@ def test_kernel_matches_plain_on_card(cuda_device):
     torch.testing.assert_close(got, iou_sh.rotated_iou_matrix(g, h), atol=1e-4, rtol=0)
     with pytest.raises(TypeError):
         iou_cu.rotated_iou_matrix(g.double(), h.double())
+
+
+def _assert_matches_plain(got, want, what):
+    """Kernel vs plain: max |diff| <= 1e-4 (as above), and the exact zeros
+    agree wherever the plain IoU is 1e-6 or more."""
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0, msg=what)
+    firm = want >= 1e-6
+    assert torch.equal((got == 0)[firm], (want == 0)[firm]), what
+
+
+@pytest.mark.gpu
+def test_periodic_kernel_sparse_operands_on_card(cuda_device):
+    """Assignment-like operands: most pairs lie apart (the cull), the rest
+    go through the queue; the periods tile nothing, so tiles straddle the
+    wrap (one period under a tile, one over). Zero-size padded boxes are
+    never culled: their IoU is area / max(rounding, 1e-8) in both versions,
+    so there only its sign is compared."""
+    rng = np.random.default_rng(9)
+    for n, reps in ((5, 1000), (3001, 24)):
+        a = _random_boxes(rng, n, spread=30.0)
+        b = _random_boxes(rng, n * reps, spread=30.0)
+        pad = rng.random(n * reps) < 0.05
+        b[pad] = 0.0
+        ta, tb = torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device)
+        got = iou_cu.rotated_iou_pairs_soa_periodic(ta.T.contiguous(), tb.T.contiguous())
+        want = iou_sh.rotated_iou(ta.repeat(reps, 1), tb)
+        torch.cuda.synchronize()
+        cut = iou_sh.culled(ta.repeat(reps, 1), tb)
+        assert 0.5 < float(cut.float().mean()) < 1.0
+        real = torch.from_numpy(~pad).to(cuda_device)
+        _assert_matches_plain(got[real], want[real], f"period {n}")
+        assert torch.equal(got[~real] > 0, want[~real] > 0)
+
+
+@pytest.mark.gpu
+def test_matrix_kernel_clustered_on_card(cuda_device):
+    """G > 1, N != M, M over one column tile, boxes in clusters: the
+    staged tiles, the cull and the queue against the plain version."""
+    rng = np.random.default_rng(10)
+    g, n, m = 5, 70, 150
+
+    def clustered(count):
+        centres = rng.uniform(-30.0, 30.0, (g, 4, 2))
+        boxes = _random_boxes(rng, g * count, spread=1.5).reshape(g, count, 5)
+        boxes[..., :2] += centres[np.arange(g)[:, None], rng.integers(0, 4, (g, count))]
+        return torch.from_numpy(boxes.astype(np.float32)).to(cuda_device)
+
+    a, b = clustered(n), clustered(m)
+    launches = iou_cu.rotated_iou_matrix.launches
+    got = iou_cu.rotated_iou_matrix(a, b)
+    torch.cuda.synchronize()
+    assert iou_cu.rotated_iou_matrix.launches == launches + 1
+    assert got.shape == (g, n, m)
+    want = iou_sh.rotated_iou_matrix(a, b)
+    cut = iou_sh.culled(a[:, :, None], b[:, None])
+    assert 0.3 < float(cut.float().mean()) < 1.0 and bool((want > 0).any())
+    _assert_matches_plain(got, want, "clustered matrix")
+
+
+@pytest.mark.gpu
+def test_pairs_kernel_sparse_operands_on_card(cuda_device):
+    """Aligned pairs, mostly apart, with a ragged last block."""
+    rng = np.random.default_rng(11)
+    n = 10_007
+    a = torch.from_numpy(_random_boxes(rng, n, spread=20.0)).to(cuda_device)
+    b = torch.from_numpy(_random_boxes(rng, n, spread=20.0)).to(cuda_device)
+    got = iou_cu.rotated_iou_pairs_soa(a.T.contiguous(), b.T.contiguous())
+    torch.cuda.synchronize()
+    assert float(iou_sh.culled(a, b).float().mean()) > 0.5
+    _assert_matches_plain(got, iou_sh.rotated_iou(a, b), "sparse aligned pairs")

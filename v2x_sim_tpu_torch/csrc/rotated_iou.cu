@@ -1,51 +1,77 @@
-// Exact rotated-box IoU on Hopper (sm_90a), one thread per box pair.
+// Exact rotated-box IoU on Hopper (sm_90a): a circle cull, then the clip
+// of the pairs that pass, run densely from a per-block queue.
 //
 // Replaces the Pallas TPU kernels v2x_sim_tpu/ops/pallas/iou_pl.py::
 // rotated_iou_pairs_soa (pallas_call at :149, body _iou_tile at :42) and
 // rotated_iou_pairs_soa_periodic (pallas_call at :199, the same body with
-// operand A's block index taken modulo the period), and repeats their
-// arithmetic step for step: corners of both quads, quad A
-// clipped by B's 4 edges in an 8-slot polygon padded by repeating its
-// last vertex, a 16-entry (kept vertex, crossing) stream per clip stage
-// compacted back to 8 slots in order, then the shoelace area and
+// operand A's block index taken modulo the period), and computes what
+// their body computes: corners of both quads, quad A clipped by B's 4
+// edges, each stage's (kept vertex, crossing) stream compacted in order
+// into at most 8 slots, then the shoelace area and
 // inter / max(areaA + areaB - inter, 1e-8), 0 when fewer than 3 vertices
 // remain. The plain PyTorch version is v2x_sim_tpu_torch/ops/iou_sh.py.
 //
-// What bounds it on this card: scalar fp32 arithmetic, not memory. A pair
-// reads 40 bytes (two boxes) and writes 4, but costs about 3.1k scalar
-// operations (the count below, taken from this source), so at the
-// H100's 67 TFLOP/s of non-tensor-core fp32 (700 W) the work takes at
-// least 47 ps a pair, ~3.6x the 13 ps that its 44 bytes take at 3.35 TB/s. Tensor cores, TMA and
-// shared-memory tiling buy nothing here. The design keeps the whole clip
-// pipeline in registers: every loop below has a compile-time trip count
-// and is fully unrolled, and the compaction writes slot k through a
-// select chain (never a run-time array index, which would put the polygon
-// in local memory). Neighbouring threads take neighbouring pairs, so the
-// SoA loads of entry points (a) and (c) coalesce; in entry point (b) a
-// warp shares box i and reads 32 consecutive boxes j. Entry point (c)
-// reads the anchor table once per repeat: at production geometry it is
-// 5 x 393,216 floats (7.9 MB), which stays in the 50 MB L2 across the B
-// repeats, so only operand B and the output cross HBM and no shared-memory
-// staging is needed. Its one 64-bit remainder per pair is integer work,
-// not counted below.
+// What bounds it on this card: a clipped pair costs ~0.6k counted
+// operations (below), most of them compares, selects and integer work,
+// each one issued instruction, against 44 bytes moved; but the anchor
+// assignment's pairs mostly lie far apart, and an exact 0 needs no clip.
+// With the design below the periodic entry on the assignment's operands
+// is bound by its bytes (24 a pair). The design:
+//
+// 1. Cull. A pair whose circumscribed circles are separated,
+//      |c_a - c_b|^2 > (r_a + r_b)^2 (1 + kCullRel) + kCullAbs,
+//    r = sqrt(l^2 + w^2) / 2, is disjoint by a margin of at least
+//    ~kCullRel/2 (r_a + r_b) + kCullAbs / (2 (r_a + r_b)) metres, far above
+//    the rounding of the side tests. In the clip, every point of A that
+//    survives B's first 3 edges then lies that margin outside the 4th, so
+//    the clip ends with count 0 and IoU exactly 0, which the cull returns
+//    directly. Boxes with a side under kCullMinSide (the zero-size padded
+//    GT among them) or a non-finite size get an infinite radius: they are
+//    never culled and go through the clip as before.
+// 2. Queue. A block takes a tile of pairs (8 a thread in the periodic
+//    entry, 4 in the matrix, 1 in the aligned pairs). The cull phase
+//    writes the zeros and appends the survivors' tile indices to a
+//    shared-memory queue (one ballot, one popc and one shared atomic per
+//    warp); after a barrier the clip phase runs the queue densely, so no
+//    lane idles on a culled pair while others clip. One launch, no host
+//    synchronisation.
+// 3. Clip. The polygon lives in this thread's slots in shared memory,
+//    laid out [slot][threadIdx.x]: the row stride is a multiple of 32
+//    words, so the bank is threadIdx.x % 32 whatever the slot, and two
+//    buffers ping-pong between stages. A stage computes the side bits of
+//    the count real vertices, and the stream's valid entries are written
+//    straight to their positions: kept vertex i to
+//    popc(kept below i) + popc(valid crossings below i), crossing i one
+//    past kept vertex i; a position >= 8 is dropped, as the Pallas body's
+//    compaction drops it. The duplicate padding of the Pallas body is
+//    not stored: its slots emit nothing (vertices gated by count, edges of
+//    length 0 never cross) and add exact zeros to the shoelace sum, so a
+//    stage walks the count real vertices with the closing edge from the
+//    last back to slot 0, in the same stream order.
+// 4. The matrix entry stages each tile's row and column boxes (corners,
+//    area, centre, radius) in shared memory once, so no pair evaluates
+//    sinf/cosf.
 //
 // Built without --use_fast_math: parity with the plain version needs the
 // precise sinf/cosf and IEEE division.
 //
-// Op count per pair (each fp32 add/sub/mul/div/abs/compare/select = 1):
-//   corners, 2 boxes:            2 x (sin, cos, 2 halvings, 4 x 8)  =   72
-//   per clip stage (x4):
-//     edge vector                                                 2
-//     side tests, 8 x (2 sub, 2 mul, 1 sub, 1 cmp)               48
-//     crossings, 8 x (2 sub, 3 denom, 2 abs/cmp, 5 t_num,
-//                     1 sel, 1 div, 4 point, 2 flags)             160
-//     compaction, 16 x (8 x (cmp, and, 2 sel) + 1 add)           528
-//     tail fill, 7 x (cmp, 2 sel)                                  21
-//                                                     stage total 759
-//   shoelace 8 x 4, abs, half, select, union 4, max, div            41
-//   total                                     72 + 4 x 759 + 41 = 3149
+// Op count (each fp32 add/sub/mul/div/abs/compare/select or integer
+// popc/and/add/compare = 1):
+//   cull, every pair: 2 radii x (2 mul, add, sqrt, half, 2 cmp, sel),
+//     centre deltas 2, distance 3, sum 1, threshold 3, compare 1      =   26
+//   clip, per pair that passes, at the largest polygons that clipping two
+//   quads passes through (nv = 4, 5, 6, 7 vertices into stages 1-4, two
+//   crossings and nv kept vertices each):
+//     corners, 2 boxes: 2 x (sin, cos, 2 halvings, 4 x 8)              72
+//     per stage: edge vector 2, side tests nv x 6, 2 crossings x
+//       (2 sub, 3 denom, 2 abs/cmp, 5 t_num, 1 div, 4 point,
+//        5 place), kept vertices nv x 6 (2 and, 2 popc, add, cmp)
+//       = 46 + 12 nv; over nv = 4..7                                   448
+//     shoelace 8 x 4, abs, half, select, union 4, max, div               41
+//     total                                                  72 + 448 + 41 = 561
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -53,159 +79,345 @@ namespace {
 constexpr float kEps = 1e-8f;
 constexpr int kSlots = 8;
 constexpr int kThreads = 256;
+// Pairs per thread in one block's tile: 8 for the periodic entry, 4 for
+// the matrix (each measured fastest of 2, 4 and 8 on its main-path
+// operands), 1 for the aligned pairs.
+constexpr int kPerThread = 8;
+constexpr int kTile = kPerThread * kThreads;
+constexpr int kMatrixPerThread = 4;
+constexpr int kMatrixTile = kMatrixPerThread * kThreads;
+// Cull slack: relative on the squared radius sum, and absolute in m^2.
+constexpr float kCullRel = 1.0f / 1024.0f;
+constexpr float kCullAbs = 1e-3f;
+// Boxes with a side under this (m) are never culled.
+constexpr float kCullMinSide = 1e-2f;
+// Matrix tile: at most kRows x kCols boxes staged, rows x cols <= kMatrixTile.
+constexpr int kRows = 64;
+constexpr int kCols = 128;
 
-__device__ __forceinline__ void corners(float x, float y, float l, float w, float yaw,
-                                        float cx[4], float cy[4]) {
+struct Quad {
+  float x[4], y[4], area;
+};
+
+// Corners CCW from front-left, as the plain version's box_corners.
+__device__ __forceinline__ Quad make_quad(float x, float y, float l, float w, float yaw) {
+  Quad q;
   const float c = cosf(yaw), s = sinf(yaw);
   const float hx = l * 0.5f, hy = w * 0.5f;
   const float lx[4] = {hx, -hx, -hx, hx};
   const float ly[4] = {hy, hy, -hy, -hy};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    cx[i] = c * lx[i] - s * ly[i] + x;
-    cy[i] = s * lx[i] + c * ly[i] + y;
+    q.x[i] = c * lx[i] - s * ly[i] + x;
+    q.y[i] = s * lx[i] + c * ly[i] + y;
   }
+  q.area = l * w;
+  return q;
 }
 
-__device__ __forceinline__ float pair_iou(float ax, float ay, float al, float aw, float ayaw,
-                                          float bx, float by, float bl, float bw, float byaw) {
-  float cax[4], cay[4], cbx[4], cby[4];
-  corners(ax, ay, al, aw, ayaw, cax, cay);
-  corners(bx, by, bl, bw, byaw, cbx, cby);
+__device__ __forceinline__ float cull_radius(float l, float w) {
+  return (l >= kCullMinSide && w >= kCullMinSide) ? 0.5f * sqrtf(l * l + w * w) : CUDART_INF_F;
+}
 
-  float px[kSlots], py[kSlots];
+// True when the circles of radius ra, rb about (ax, ay), (bx, by) are
+// separated by the cull's margin (false for NaN or infinite operands).
+__device__ __forceinline__ bool circles_apart(float ax, float ay, float ra, float bx, float by,
+                                              float rb) {
+  const float dx = ax - bx, dy = ay - by, s = ra + rb;
+  return dx * dx + dy * dy > s * s * (1.0f + kCullRel) + kCullAbs;
+}
+
+// One clip stage: the polygon of `count` vertices in (px, py), clipped by
+// the half-plane left of the edge (ea_x, ea_y) -> (eb_x, eb_y), into
+// (qx, qy). Slot k of a buffer is at [k * kThreads]. Returns the number of
+// valid stream entries (those past slot 7 are dropped).
+__device__ __forceinline__ int clip_stage(float ea_x, float ea_y, float eb_x, float eb_y, int count,
+                                          const float* px, const float* py, float* qx, float* qy) {
+  const int nv = min(count, kSlots);
+  const float ex = eb_x - ea_x, ey = eb_y - ea_y;
+  unsigned in = 0u;  // bit i: vertex i on the inner side of the edge
 #pragma unroll
   for (int i = 0; i < kSlots; ++i) {
-    px[i] = cax[i < 4 ? i : 3];
-    py[i] = cay[i < 4 ? i : 3];
+    if (i < nv) {
+      const bool side = ex * (py[i * kThreads] - ea_y) - ey * (px[i * kThreads] - ea_x) >= -kEps;
+      in |= static_cast<unsigned>(side) << i;
+    }
   }
-  int count = 4;
-
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float ea_x = cbx[e], ea_y = cby[e];
-    const float ex = cbx[(e + 1) % 4] - ea_x, ey = cby[(e + 1) % 4] - ea_y;
-    bool side[kSlots];
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i) side[i] = ex * (py[i] - ea_y) - ey * (px[i] - ea_x) >= -kEps;
-
-    float ox[kSlots], oy[kSlots];
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) ox[k] = oy[k] = 0.0f;
-    int pos = 0;
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      const int j = (i + 1) % kSlots;
-      const float dx = px[j] - px[i], dy = py[j] - py[i];
-      const float denom = ex * dy - ey * dx;
-      const bool ok = fabsf(denom) > kEps;
-      const float t_num = ex * (ea_y - py[i]) - ey * (ea_x - px[i]);
-      const float t = t_num / (ok ? denom : 1.0f);
-      // Stream entry 2i: the vertex, gated by the padding slots.
-      // Stream entry 2i+1: the crossing of edge i -> i+1, ungated.
-      const float sx[2] = {px[i], px[i] + t * dx};
-      const float sy[2] = {py[i], py[i] + t * dy};
-      const bool sv[2] = {side[i] && (count > i), (side[i] != side[j]) && ok};
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-#pragma unroll
-        for (int k = 0; k < kSlots; ++k) {
-          const bool hit = sv[u] && (pos == k);
-          ox[k] = hit ? sx[u] : ox[k];
-          oy[k] = hit ? sy[u] : oy[k];
-        }
-        pos += sv[u] ? 1 : 0;
+  // Bit i of `next`: the side of vertex (i + 1) % nv.
+  const unsigned next = (in >> 1) | (nv > 0 ? (in & 1u) << (nv - 1) : 0u);
+  unsigned crossed = 0u;  // bit i: stream entry 2i+1 (the crossing) is valid
+  for (unsigned c = in ^ next; c != 0u; c &= c - 1u) {
+    const int i = __ffs(c) - 1;
+    const int j = i + 1 == nv ? 0 : i + 1;
+    const float xi = px[i * kThreads], yi = py[i * kThreads];
+    const float dx = px[j * kThreads] - xi, dy = py[j * kThreads] - yi;
+    const float denom = ex * dy - ey * dx;
+    if (fabsf(denom) > kEps) {
+      const float t = (ex * (ea_y - yi) - ey * (ea_x - xi)) / denom;
+      const int pos = __popc(in & ((2u << i) - 1u)) + __popc(crossed);
+      if (pos < kSlots) {
+        qx[pos * kThreads] = xi + t * dx;
+        qy[pos * kThreads] = yi + t * dy;
       }
+      crossed |= 1u << i;
     }
-    // Duplicate-fill the tail so padding stays degenerate.
-#pragma unroll
-    for (int k = 1; k < kSlots; ++k) {
-      const bool filled = pos > k;
-      ox[k] = filled ? ox[k] : ox[k - 1];
-      oy[k] = filled ? oy[k] : oy[k - 1];
-    }
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      px[k] = ox[k];
-      py[k] = oy[k];
-    }
-    count = pos;
   }
+  for (unsigned v = in; v != 0u; v &= v - 1u) {
+    const int i = __ffs(v) - 1;
+    const unsigned below = (1u << i) - 1u;
+    const int pos = __popc(in & below) + __popc(crossed & below);
+    if (pos < kSlots) {
+      qx[pos * kThreads] = px[i * kThreads];
+      qy[pos * kThreads] = py[i * kThreads];
+    }
+  }
+  return __popc(in) + __popc(crossed);
+}
 
+// Area of quad a clipped by quad b's 4 edges. (px, py) and (qx, qy) are
+// this thread's two slot buffers; the stages ping-pong between them.
+__device__ __forceinline__ float intersection(const Quad& a, const Quad& b, float* px, float* py,
+                                              float* qx, float* qy) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    px[i * kThreads] = a.x[i];
+    py[i * kThreads] = a.y[i];
+  }
+  int count = clip_stage(b.x[0], b.y[0], b.x[1], b.y[1], 4, px, py, qx, qy);
+  count = clip_stage(b.x[1], b.y[1], b.x[2], b.y[2], count, qx, qy, px, py);
+  count = clip_stage(b.x[2], b.y[2], b.x[3], b.y[3], count, px, py, qx, qy);
+  count = clip_stage(b.x[3], b.y[3], b.x[0], b.y[0], count, qx, qy, px, py);
+
+  const int nv = min(count, kSlots);
   float area2 = 0.0f;
+  const float x0 = px[0], y0 = py[0];
+  float xi = x0, yi = y0;
 #pragma unroll
   for (int i = 0; i < kSlots; ++i) {
-    const int j = (i + 1) % kSlots;
-    area2 = area2 + (px[i] * py[j] - px[j] * py[i]);
+    if (i < nv) {
+      const bool last = i + 1 == nv;
+      const float xj = last ? x0 : px[((i + 1) % kSlots) * kThreads];
+      const float yj = last ? y0 : py[((i + 1) % kSlots) * kThreads];
+      area2 = area2 + (xi * yj - xj * yi);
+      xi = xj;
+      yi = yj;
+    }
   }
-  const float inter = count >= 3 ? 0.5f * fabsf(area2) : 0.0f;
-  const float uni = al * aw + bl * bw - inter;
-  return inter / fmaxf(uni, kEps);
+  return count >= 3 ? 0.5f * fabsf(area2) : 0.0f;
+}
+
+__device__ __forceinline__ float iou(const Quad& a, const Quad& b, float* slots) {
+  float* s = slots + threadIdx.x;
+  const float inter =
+      intersection(a, b, s, s + kSlots * kThreads, s + 2 * kSlots * kThreads, s + 3 * kSlots * kThreads);
+  return inter / fmaxf(a.area + b.area - inter, kEps);
+}
+
+// One block's tile of `size` pairs: cull every pair (zeros written at
+// once), queue the rest, then clip the queue densely. Src provides
+// disjoint(q), quads(q, a, b) and store(q, v) for tile index q.
+template <int kPer, class Src>
+__device__ __forceinline__ void cull_then_clip(const Src& src, int size) {
+  __shared__ float slots[4 * kSlots * kThreads];
+  __shared__ unsigned short queue[kPer * kThreads];
+  __shared__ int queued;
+  if (threadIdx.x == 0) queued = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int q = r * kThreads + threadIdx.x;
+    bool pass = false;
+    if (q < size) {
+      pass = !src.disjoint(q);
+      if (!pass) src.store(q, 0.0f);
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, pass);
+    int base = 0;
+    if (lane == 0 && ballot != 0u) base = atomicAdd(&queued, __popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (pass) queue[base + __popc(ballot & ((1u << lane) - 1u))] = static_cast<unsigned short>(q);
+  }
+  __syncthreads();
+  const int total = queued;
+  for (int k = threadIdx.x; k < total; k += kThreads) {
+    const int q = queue[k];
+    Quad a, b;
+    src.quads(q, a, b);
+    src.store(q, iou(a, b, slots));
+  }
 }
 
 // (a) Aligned pairs, field-major: field f of pair p at soa[f * n + p].
-__global__ void __launch_bounds__(kThreads)
+struct PairsSrc {
+  const float* a;
+  const float* b;
+  float* out;
+  int64_t n, base;
+  __device__ __forceinline__ bool disjoint(int q) const {
+    const int64_t p = base + q;
+    return circles_apart(a[p], a[n + p], cull_radius(a[2 * n + p], a[3 * n + p]), b[p], b[n + p],
+                      cull_radius(b[2 * n + p], b[3 * n + p]));
+  }
+  __device__ __forceinline__ void quads(int q, Quad& qa, Quad& qb) const {
+    const int64_t p = base + q;
+    qa = make_quad(a[p], a[n + p], a[2 * n + p], a[3 * n + p], a[4 * n + p]);
+    qb = make_quad(b[p], b[n + p], b[2 * n + p], b[3 * n + p], b[4 * n + p]);
+  }
+  __device__ __forceinline__ void store(int q, float v) const { out[base + q] = v; }
+};
+
+// One pair a thread (72 blocks at the forced-anchor test's 18,432 pairs):
+// this entry is latency-bound, and a deeper tile would lengthen each
+// thread's chain. The minimum of 4 blocks an SM lets ptxas keep it in 45
+// registers without the 16 bytes it spilled at its own choice of 40.
+__global__ void __launch_bounds__(kThreads, 4)
 rotated_iou_pairs_kernel(const float* __restrict__ a, const float* __restrict__ b,
                          float* __restrict__ out, int64_t n) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  out[p] = pair_iou(a[p], a[n + p], a[2 * n + p], a[3 * n + p], a[4 * n + p],
-                    b[p], b[n + p], b[2 * n + p], b[3 * n + p], b[4 * n + p]);
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int64_t left = n - base;
+  cull_then_clip<1>(PairsSrc{a, b, out, n, base}, static_cast<int>(left < kThreads ? left : kThreads));
 }
 
-// (b) Batched matrix: a (G, N, 5) x b (G, M, 5) -> out (G, N, M); the
-// thread for (g, i, j) reads box i of a[g] and box j of b[g] directly.
+// (b) Batched matrix: a (G, N, 5) x b (G, M, 5) -> out (G, N, M). A block
+// takes group g, a tile of rows and a tile of columns, staged once.
+enum Field { kX, kY, kR, kArea, kCx, kCy = kCx + 4, kFields = kCy + 4 };
+
+struct MatrixSrc {
+  float (*rows)[kRows];  // [field][row]
+  float (*cols)[kCols];
+  float* out;  // the tile's (0, 0) entry
+  int64_t m;
+  int nc;  // columns in this tile
+  __device__ __forceinline__ bool disjoint(int q) const {
+    const int r = q / nc, c = q - r * nc;
+    return circles_apart(rows[kX][r], rows[kY][r], rows[kR][r], cols[kX][c], cols[kY][c], cols[kR][c]);
+  }
+  __device__ __forceinline__ void quads(int q, Quad& qa, Quad& qb) const {
+    const int r = q / nc, c = q - r * nc;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qa.x[i] = rows[kCx + i][r];
+      qa.y[i] = rows[kCy + i][r];
+      qb.x[i] = cols[kCx + i][c];
+      qb.y[i] = cols[kCy + i][c];
+    }
+    qa.area = rows[kArea][r];
+    qb.area = cols[kArea][c];
+  }
+  __device__ __forceinline__ void store(int q, float v) const {
+    const int r = q / nc, c = q - r * nc;
+    out[r * m + c] = v;
+  }
+};
+
+template <int kCap>
+__device__ __forceinline__ void stage_box(float (*dst)[kCap], int k, const float* box) {
+  const Quad q = make_quad(box[0], box[1], box[2], box[3], box[4]);
+  dst[kX][k] = box[0];
+  dst[kY][k] = box[1];
+  dst[kR][k] = cull_radius(box[2], box[3]);
+  dst[kArea][k] = q.area;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    dst[kCx + i][k] = q.x[i];
+    dst[kCy + i][k] = q.y[i];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 rotated_iou_matrix_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                          float* __restrict__ out, int64_t g, int64_t n, int64_t m) {
-  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (q >= g * n * m) return;
-  const int64_t j = q % m;
-  const int64_t gi = q / m;  // g * n + i
-  const float* ba = a + gi * 5;
-  const float* bb = b + ((gi / n) * m + j) * 5;
-  out[q] = pair_iou(ba[0], ba[1], ba[2], ba[3], ba[4], bb[0], bb[1], bb[2], bb[3], bb[4]);
+                          float* __restrict__ out, int64_t n, int64_t m, int tr, int tc,
+                          int64_t row_tiles, int64_t col_tiles) {
+  __shared__ float rows[kFields][kRows];
+  __shared__ float cols[kFields][kCols];
+  const int64_t blk = blockIdx.x;
+  const int64_t ct = blk % col_tiles, rest = blk / col_tiles;
+  const int64_t rt = rest % row_tiles, g = rest / row_tiles;
+  const int64_t row0 = rt * tr, col0 = ct * tc;
+  const int nr = static_cast<int>(n - row0 < tr ? n - row0 : tr);
+  const int nc = static_cast<int>(m - col0 < tc ? m - col0 : tc);
+  for (int k = threadIdx.x; k < nr + nc; k += kThreads) {
+    if (k < nr) stage_box<kRows>(rows, k, a + (g * n + row0 + k) * 5);
+    else stage_box<kCols>(cols, k - nr, b + (g * m + col0 + k - nr) * 5);
+  }
+  __syncthreads();
+  cull_then_clip<kMatrixPerThread>(MatrixSrc{rows, cols, out + (g * n + row0) * m + col0, m, nc},
+                                   nr * nc);
 }
 
 // (c) Periodic pairs, field-major: pair p takes box A from column p % n of
 // the (5, n) table a and box B from column p of the (5, nb) array b.
+struct PeriodicSrc {
+  const float* a;
+  const float* b;
+  float* out;
+  int64_t n, nb, base, base_mod;  // base_mod = base % n
+  __device__ __forceinline__ int64_t col(int q) const {
+    const int64_t i = base_mod + q;  // < n + kTile
+    return i < n ? i : (n >= kTile ? i - n : i % n);
+  }
+  __device__ __forceinline__ bool disjoint(int q) const {
+    const int64_t i = col(q), p = base + q;
+    return circles_apart(a[i], a[n + i], cull_radius(a[2 * n + i], a[3 * n + i]), b[p], b[nb + p],
+                      cull_radius(b[2 * nb + p], b[3 * nb + p]));
+  }
+  __device__ __forceinline__ void quads(int q, Quad& qa, Quad& qb) const {
+    const int64_t i = col(q), p = base + q;
+    qa = make_quad(a[i], a[n + i], a[2 * n + i], a[3 * n + i], a[4 * n + i]);
+    qb = make_quad(b[p], b[nb + p], b[2 * nb + p], b[3 * nb + p], b[4 * nb + p]);
+  }
+  __device__ __forceinline__ void store(int q, float v) const { out[base + q] = v; }
+};
+
 __global__ void __launch_bounds__(kThreads)
 rotated_iou_pairs_periodic_kernel(const float* __restrict__ a, const float* __restrict__ b,
                                   float* __restrict__ out, int64_t n, int64_t nb) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= nb) return;
-  const int64_t i = p % n;
-  out[p] = pair_iou(a[i], a[n + i], a[2 * n + i], a[3 * n + i], a[4 * n + i],
-                    b[p], b[nb + p], b[2 * nb + p], b[3 * nb + p], b[4 * nb + p]);
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t left = nb - base;
+  cull_then_clip<kPerThread>(PeriodicSrc{a, b, out, n, nb, base, base % n},
+                             static_cast<int>(left < kTile ? left : kTile));
 }
 
-unsigned int blocks_for(int64_t total) {
-  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
-}
+int64_t ceil_div(int64_t x, int64_t y) { return (x + y - 1) / y; }
+
+constexpr int64_t kMaxBlocks = 2147483647;
+constexpr int kGridTooLarge = static_cast<int>(cudaErrorInvalidConfiguration);
 
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// as an int (0 = launched). The caller guarantees n, g*n*m, nb in
-// [1, 2^31 * 256), and nb a multiple of n.
+// as an int (0 = launched), or cudaErrorInvalidConfiguration for a grid
+// of more than 2^31 - 1 blocks. The caller guarantees n, g*n*m, nb >= 1,
+// and nb a multiple of n.
 int v2x_rotated_iou_pairs(const float* a, const float* b, float* out, int64_t n, void* stream) {
-  rotated_iou_pairs_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, out, n);
+  const int64_t blocks = ceil_div(n, kThreads);
+  if (blocks > kMaxBlocks) return kGridTooLarge;
+  rotated_iou_pairs_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(a, b, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 int v2x_rotated_iou_matrix(const float* a, const float* b, float* out, int64_t g, int64_t n,
                            int64_t m, void* stream) {
-  rotated_iou_matrix_kernel<<<blocks_for(g * n * m), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(a, b, out, g, n, m);
+  const int tc = static_cast<int>(m < kCols ? m : kCols);
+  const int tr = kMatrixTile / tc < kRows ? kMatrixTile / tc : kRows;
+  const int64_t row_tiles = ceil_div(n, tr), col_tiles = ceil_div(m, tc);
+  const int64_t blocks = g * row_tiles * col_tiles;
+  if (blocks > kMaxBlocks) return kGridTooLarge;
+  rotated_iou_matrix_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a, b, out, n, m, tr, tc,
+                                                                   row_tiles, col_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 int v2x_rotated_iou_pairs_periodic(const float* a, const float* b, float* out, int64_t n,
                                    int64_t nb, void* stream) {
-  rotated_iou_pairs_periodic_kernel<<<blocks_for(nb), kThreads, 0,
+  const int64_t blocks = ceil_div(nb, kTile);
+  if (blocks > kMaxBlocks) return kGridTooLarge;
+  rotated_iou_pairs_periodic_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                                       static_cast<cudaStream_t>(stream)>>>(a, b, out, n, nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -92,6 +92,28 @@ def gt_soa(gt_boxes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(fields, 2, idx[None].expand(5, b, n)).reshape(5, b * n)
 
 
+def own_cell(gt_boxes: torch.Tensor, config: Config) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, M) row and column of the BEV cell that holds each GT centre
+    (clamped into the grid)."""
+    grid = config.grid
+    h, w = grid.bev_shape
+    (x0, _), (y0, _) = grid.area_extents[0], grid.area_extents[1]
+    gr = torch.floor((gt_boxes[..., 0] - x0) / grid.voxel_size[0]).to(torch.int64).clamp(0, h - 1)
+    gc = torch.floor((gt_boxes[..., 1] - y0) / grid.voxel_size[1]).to(torch.int64).clamp(0, w - 1)
+    return gr, gc
+
+
+def own_cell_pairs(
+    gt_boxes: torch.Tensor, anchors: torch.Tensor, gr: torch.Tensor, gc: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Field-major (5, B*M*K) operands of the forced-anchor test: each GT
+    repeated K times against the K anchors of its own cell."""
+    b, m = gt_boxes.shape[:2]
+    k = anchors.shape[2]
+    gt_rep = gt_boxes[:, :, None, :].expand(b, m, k, 5)
+    return gt_rep.reshape(-1, 5).T.contiguous(), anchors[gr, gc].reshape(-1, 5).T.contiguous()
+
+
 def assign_targets_batched(
     gt_boxes: torch.Tensor,
     gt_mask: torch.Tensor,
@@ -137,13 +159,8 @@ def assign_targets_batched(
     grid = config.grid
     (x0, _), (y0, _) = grid.area_extents[0], grid.area_extents[1]
     vx, vy = grid.voxel_size[0], grid.voxel_size[1]
-    gr = torch.floor((gt_boxes[..., 0] - x0) / vx).to(torch.int64).clamp(0, h - 1)  # (B, M)
-    gc = torch.floor((gt_boxes[..., 1] - y0) / vy).to(torch.int64).clamp(0, w - 1)
-    own = anchors[gr, gc]  # (B, M, K, 5)
-    gt_rep = gt_boxes[:, :, None, :].expand(b, m, k, 5)
-    own_iou = iou_cu.rotated_iou_pairs_soa(
-        gt_rep.reshape(-1, 5).T.contiguous(), own.reshape(-1, 5).T.contiguous()
-    ).view(b, m, k)
+    gr, gc = own_cell(gt_boxes, config)
+    own_iou = iou_cu.rotated_iou_pairs_soa(*own_cell_pairs(gt_boxes, anchors, gr, gc)).view(b, m, k)
     own_k = own_iou.argmax(dim=-1)
     force = gt_mask & (own_iou.amax(dim=-1) > 0.0)
     # Anchor n is a sink for GT that force nothing. Where several GT force

@@ -14,14 +14,21 @@ code:
     (5, B*n) boxes, pair p reading anchor p % n without a tiled copy — the
     second Pallas function; the anchor assignment calls it twice.
 
+Each launch culls the pairs whose circumscribed circles lie apart (IoU
+exactly 0; ``iou_sh.culled`` is a plain copy of the test) and clips the
+rest densely from a per-block queue, in one launch with no host
+synchronisation.
+
 A CPU tensor goes to the plain PyTorch version (``ops/iou_sh.py``). A CUDA
 tensor launches the kernel or raises; there is no fallback. Each wrapper
 counts its launches in its ``launches`` attribute.
 
-Bound on the H100: fp32 scalar operations, ``OPS_PER_PAIR`` a pair (the
-count is derived in the source's header) against ``BYTES_PER_PAIR`` of
-memory traffic for the aligned-pairs entry point (the periodic entry point
-moves ``PERIODIC_BYTES_PER_PAIR``: its anchor table is read from L2).
+Bound on the H100, which depends on the data: ``OPS_CULL_PER_PAIR``
+scalar operations on every pair plus ``OPS_PER_PAIR`` on each pair that
+passes the cull (both counts are derived in the source's header), against
+``BYTES_PER_PAIR`` of memory traffic for the aligned-pairs entry point
+(the periodic entry point moves ``PERIODIC_BYTES_PER_PAIR``: its anchor
+table is read from L2).
 """
 
 from __future__ import annotations
@@ -34,8 +41,10 @@ import torch
 from v2x_sim_tpu_torch.ops import iou_sh
 from v2x_sim_tpu_torch.ops.cuda import build
 
-#: Scalar operations one pair costs, counted from csrc/rotated_iou.cu.
-OPS_PER_PAIR = 3149
+#: Scalar operations of the cull, on every pair (csrc/rotated_iou.cu's header).
+OPS_CULL_PER_PAIR = 26
+#: Scalar operations of the clip, on a pair that passes the cull.
+OPS_PER_PAIR = 561
 #: Bytes one aligned pair moves: two 5-float boxes in, one float out.
 BYTES_PER_PAIR = 44
 #: Bytes one periodic pair moves: one 5-float box in, one float out.
@@ -46,9 +55,13 @@ _MAX_THREADS = (2**31 - 1) * 256
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The built library with its C signatures declared (pointers and the
-    stream as void*, sizes as int64)."""
-    lib = build.load("rotated_iou")
+    """The built library with its C signatures declared."""
+    return declare(build.load("rotated_iou"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points' C signatures on a loaded build of
+    csrc/rotated_iou.cu (pointers and the stream as void*, sizes as int64)."""
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.v2x_rotated_iou_pairs.argtypes = [ptr, ptr, ptr, i64, ptr]
     lib.v2x_rotated_iou_pairs.restype = ctypes.c_int

@@ -24,6 +24,14 @@ from v2x_sim_tpu_torch.ops.boxes import box_area, box_corners
 EPS = 1e-8
 SLOTS = 8
 
+#: The CUDA kernel's cull (csrc/rotated_iou.cu): a pair whose circumscribed
+#: circles lie apart by this slack (relative on the squared radius sum,
+#: absolute in m^2) has IoU exactly 0, and the kernel returns 0 for it
+#: without clipping. Boxes with a side under CULL_MIN_SIDE are never culled.
+CULL_REL = 1.0 / 1024.0
+CULL_ABS = 1e-3
+CULL_MIN_SIDE = 1e-2
+
 
 def _clip_quad(
     px: List[torch.Tensor], py: List[torch.Tensor], cbx, cby
@@ -105,3 +113,24 @@ def rotated_iou_pairs_soa_periodic(a_soa: torch.Tensor, b_soa: torch.Tensor) -> 
     if n == 0 or nb % n:
         raise ValueError(f"pair count {nb} is not a multiple of the period {n}")
     return rotated_iou(a_soa.T.repeat(nb // n, 1), b_soa.T)
+
+
+def cull_radius(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 5) boxes -> (...,) circumscribed radius, inf for a box that
+    the cull never takes (a side under CULL_MIN_SIDE, or not finite)."""
+    l, w = boxes[..., 2], boxes[..., 3]
+    r = 0.5 * torch.sqrt(l * l + w * w)
+    proper = (l >= CULL_MIN_SIDE) & (w >= CULL_MIN_SIDE)
+    return torch.where(proper, r, torch.full_like(r, float("inf")))
+
+
+def culled(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Broadcastable (..., 5) boxes -> bool mask of the pairs the kernel's
+    cull answers with 0 before clipping. A plain copy of the kernel's test
+    (its float rounding may differ at the margin): chip_smoke.py counts
+    the kernel's work with it, and the tests hold that every pair it takes
+    has IoU exactly 0 here. Nothing on the main path calls it."""
+    dx = boxes_a[..., 0] - boxes_b[..., 0]
+    dy = boxes_a[..., 1] - boxes_b[..., 1]
+    s = cull_radius(boxes_a) + cull_radius(boxes_b)
+    return dx * dx + dy * dy > s * s * (1.0 + CULL_REL) + CULL_ABS
