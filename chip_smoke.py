@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (v2x_sim_tpu_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline OTHER.cu]
 
 Phases, each reported on its own line; any failure exits non-zero:
 
@@ -32,12 +32,16 @@ Phases, each reported on its own line; any failure exits non-zero:
      pairs, exact zeros equal too), the aligned pairs on the forced-anchor
      test.
 
-Each kernel timing line gives the share of pairs that pass the kernel's
-cull, the share of 32-pair groups with any pair that passes, and the
-data-dependent bound (the cull on every pair, the clip on those that
-pass, or the bytes, whichever is larger).
   6. Training timing: train scenes/sec (step only, and prepare + step) in
      fp32 and bf16, per-stage CUDA-event times, peak device memory.
+
+Each kernel timing line gives the share of pairs that pass the kernel's
+cull, the share of 32-pair groups with any pair that passes, and the
+data-dependent bound: the larger of the counted operations that these
+operands need (iou_cu.OPS_*, the clip counted at the vertex counts they
+produce) and the bytes they need moved. With --baseline, another version
+of csrc/rotated_iou.cu is built too and timed against this one in turns
+on the main path's operands (lines tagged [A/B]).
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -47,11 +51,13 @@ Parity phases run with TF32 off (cuDNN and matmul), so fp32 is fp32.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -123,40 +129,109 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def iou_bound(pairs: int, passed: int, bytes_moved: int):
-    """Least time (ms) for the IoU work and what bounds it: the cull on
-    every pair and the clip on the `passed` pairs, or the bytes."""
-    from v2x_sim_tpu_torch.ops.cuda.iou_cu import OPS_CULL_PER_PAIR, OPS_PER_PAIR
-
-    t_ops = (OPS_CULL_PER_PAIR * pairs + OPS_PER_PAIR * passed) / PEAK_FP32_OPS
-    t_bytes = bytes_moved / PEAK_HBM_BYTES
+def iou_bound(ops: int, bytes_moved: int):
+    """Least time (ms) on the card for `ops` counted operations and
+    `bytes_moved` bytes, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, bytes_moved / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-class CullCount:
-    """Pairs that pass the kernel's cull (the plain copy, iou_sh.culled),
-    and 32-pair groups in launch order with any pair that passes, summed
-    over chunks of one launch's operands."""
+class IouWork:
+    """What one launch's pairs need, summed over chunks of its operands:
+    the pairs that pass the kernel's cull (its plain copy, iou_sh.culled;
+    with cull=False every pair is clipped), the 32-pair groups in launch
+    order with any pair that passes, and the counted operations of
+    clipping the pairs that pass (iou_cu.clip_ops)."""
 
-    def __init__(self):
-        self.pairs = self.passed = self.groups = self.groups_passed = 0
+    def __init__(self, cull: bool = True):
+        self.cull = cull
+        self.pairs = self.passed = self.groups = self.groups_passed = self.clip_ops = 0
 
     def add(self, boxes_a, boxes_b) -> None:
         import torch
 
         from v2x_sim_tpu_torch.ops import iou_sh
+        from v2x_sim_tpu_torch.ops.cuda import iou_cu
 
-        keep = ~iou_sh.culled(boxes_a, boxes_b).reshape(-1)
+        boxes_a, boxes_b = (t.reshape(-1, 5) for t in torch.broadcast_tensors(boxes_a, boxes_b))
+        if self.cull:
+            keep = ~iou_sh.culled(boxes_a, boxes_b)
+        else:
+            keep = torch.ones(boxes_a.shape[0], dtype=torch.bool, device=boxes_a.device)
         pad = -keep.numel() % 32
         groups = torch.cat([keep, keep.new_zeros(pad)]).view(-1, 32).any(dim=1)
         self.pairs += keep.numel()
         self.passed += int(keep.sum())
         self.groups += groups.numel()
         self.groups_passed += int(groups.sum())
+        self.clip_ops += iou_cu.clip_ops(boxes_a[keep], boxes_b[keep])
+
+    def matrix_bound(self, g: int, n: int, m: int):
+        """The matrix entry: corners and radius once a box, the cull's test
+        on every pair, the clip on those that pass; bytes: both box arrays
+        in, the matrix out."""
+        from v2x_sim_tpu_torch.ops.cuda.iou_cu import OPS_CORNERS, OPS_CULL, OPS_RADIUS
+
+        ops = (OPS_CORNERS + OPS_RADIUS) * g * (n + m) + OPS_CULL * self.pairs + self.clip_ops
+        return iou_bound(ops, 4 * (5 * g * (n + m) + self.pairs))
+
+    def pairs_bound(self):
+        """The aligned-pairs entry: both corners and the clip on every
+        pair; bytes: two 5-float boxes in and one float out a pair."""
+        from v2x_sim_tpu_torch.ops.cuda.iou_cu import OPS_CORNERS
+
+        return iou_bound(2 * OPS_CORNERS * self.pairs + self.clip_ops, 44 * self.pairs)
+
+    def periodic_bound(self, n: int):
+        """The periodic entry: both radii and the cull's test on every pair,
+        corners and the clip on those that pass; bytes: the (5, n) table
+        once, x, y, l, w in and the IoU out for every pair, and the yaw
+        only for the pairs that pass."""
+        from v2x_sim_tpu_torch.ops.cuda.iou_cu import OPS_CORNERS, OPS_CULL, OPS_RADIUS
+
+        ops = ((2 * OPS_RADIUS + OPS_CULL) * self.pairs + 2 * OPS_CORNERS * self.passed
+               + self.clip_ops)
+        return iou_bound(ops, 4 * 5 * n + 20 * self.pairs + 4 * self.passed)
 
     def __str__(self) -> str:
+        if not self.cull:
+            return f"no cull in this entry: all {self.pairs} pairs clipped"
         return (f"{self.passed}/{self.pairs} pairs pass the cull ({self.passed / self.pairs:.4f}), "
                 f"32-pair groups with one that passes {self.groups_passed / self.groups:.4f}")
+
+
+def time_against(base, entry: str, operands, sizes, pairs: int, what: str, card: str) -> None:
+    """With a baseline build (--baseline), time its C entry point `entry`
+    against this build's on the same operands in turns (baseline, current,
+    current, baseline; raw calls, not counted as launches) and check that
+    the two builds agree within IOU_TOL. Does nothing without one."""
+    if base is None:
+        return
+    import torch
+
+    from v2x_sim_tpu_torch.ops.cuda import build, iou_cu
+
+    libs = {"baseline": base, "current": iou_cu.declare(build.load("rotated_iou"))}
+    outs = {key: torch.empty(pairs, device=operands[0].device) for key in libs}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(key):
+        rc = getattr(libs[key], entry)(*(t.data_ptr() for t in operands), outs[key].data_ptr(),
+                                       *sizes, stream)
+        if rc != 0:
+            raise RuntimeError(f"{key} {entry}: cudaError_t {rc}")
+
+    times = {key: [] for key in libs}
+    for key in ("baseline", "current", "current", "baseline"):
+        times[key].append(time_ms(lambda: call(key), iters=20))
+    err = float((outs["baseline"] - outs["current"]).abs().max())
+    if not err <= IOU_TOL:
+        raise AssertionError(f"{what}: the two builds differ by {err} > {IOU_TOL}")
+    log(f"[A/B] {what} ({pairs} pairs): baseline "
+        + " ".join(f"{t:.4f}" for t in times["baseline"]) + " ms, current "
+        + " ".join(f"{t:.4f}" for t in times["current"]) + " ms, speedup "
+        f"{np.mean(times['baseline']) / np.mean(times['current']):.2f}x, max |diff| {err:.2e} "
+        f"[{card}]")
 
 
 def phase_build() -> None:
@@ -238,8 +313,7 @@ def phase_kernel(device, card: str, groups: int, n_random: int, own_pairs: int) 
         f"({n_own}) max_abs_err={err_own:.3e}; periodic ({PERIOD} x {reps} = {PERIOD * reps} "
         f"pairs) max_abs_err={err_per:.3e}")
 
-    mat_pairs = groups * MAX_BOXES * MAX_BOXES
-    cull_mat, cull_pairs, cull_own = CullCount(), CullCount(), CullCount()
+    cull_mat, cull_pairs, cull_own = IouWork(), IouWork(cull=False), IouWork(cull=False)
     cull_mat.add(ma[:, :, None], ma[:, None])
     cull_pairs.add(pa, pb)
     cull_own.add(oa, ob)
@@ -254,11 +328,11 @@ def phase_kernel(device, card: str, groups: int, n_random: int, own_pairs: int) 
         "own_plain_ms": time_ms(lambda: iou_sh.rotated_iou(oa, ob), iters=10),
         "err_per": err_per,
     }
-    bound, by = iou_bound(mat_pairs, cull_mat.passed, 4 * (2 * groups * MAX_BOXES * 5 + mat_pairs))
-    pairs_bound, pairs_by = iou_bound(n_random, cull_pairs.passed, iou_cu.BYTES_PER_PAIR * n_random)
-    own_bound, own_by = iou_bound(n_own, cull_own.passed, iou_cu.BYTES_PER_PAIR * n_own)
+    bound, by = cull_mat.matrix_bound(groups, MAX_BOXES, MAX_BOXES)
+    pairs_bound, pairs_by = cull_pairs.pairs_bound()
+    own_bound, own_by = cull_own.pairs_bound()
     log(f"[2] rotated_iou_matrix {groups}x{MAX_BOXES}x{MAX_BOXES} random boxes: kernel "
-        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound {bound:.4f} ms ({by}); "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound {bound:.5f} ms ({by}); "
         f"{cull_mat} [{card}]")
     log(f"[2] rotated_iou_pairs {n_random} random boxes: kernel {out['pairs_ms']:.4f} ms, plain "
         f"{out['pairs_plain_ms']:.3f} ms, bound {pairs_bound:.4f} ms ({pairs_by}); {cull_pairs}; "
@@ -269,10 +343,11 @@ def phase_kernel(device, card: str, groups: int, n_random: int, own_pairs: int) 
     return out
 
 
-def phase_main_path(device, cfg, spec, batch_size: int, variables, card: str = "") -> dict:
+def phase_main_path(device, cfg, spec, batch_size: int, variables, card: str = "",
+                    base=None) -> dict:
     """Drive DetModule.predict on the card; check launches, finiteness, the
-    NMS IoU matrix against the plain version (and time it there), and one
-    scene against the CPU."""
+    NMS IoU matrix against the plain version (and time it there, against
+    the baseline build too if there is one), and one scene against the CPU."""
     import torch
 
     from v2x_sim_tpu_torch.datasets.synthetic import generate_batch
@@ -334,15 +409,16 @@ def phase_main_path(device, cfg, spec, batch_size: int, variables, card: str = "
     if device.type == "cuda":
         g = sb.shape[0]
         pairs = g * MAX_BOXES * MAX_BOXES
-        cull = CullCount()
+        cull = IouWork()
         cull.add(sb[:, :, None], sb[:, None])
         own["ms"] = time_ms(lambda: iou_cu.rotated_iou_matrix(sb, sb), iters=50)
         own["plain_ms"] = time_ms(lambda: iou_sh.rotated_iou_matrix(sb, sb), iters=10)
-        own["bound_ms"], own["bound_by"] = iou_bound(
-            pairs, cull.passed, 4 * (2 * g * MAX_BOXES * 5 + pairs))
+        own["bound_ms"], own["bound_by"] = cull.matrix_bound(g, MAX_BOXES, MAX_BOXES)
         log(f"[3] rotated_iou_matrix {g}x{MAX_BOXES}x{MAX_BOXES} on predict's NMS candidates: "
             f"kernel {own['ms']:.4f} ms, plain {own['plain_ms']:.3f} ms, bound "
             f"{own['bound_ms']:.5f} ms ({own['bound_by']}); {cull} [{card}]")
+        time_against(base, "v2x_rotated_iou_matrix", (sb, sb), (g, MAX_BOXES, MAX_BOXES), pairs,
+                     "matrix on predict's NMS candidates", card)
 
     # One scene through the port on the CPU, same weights.
     cpu = DetModule(cfg, "disco", torch.float32, device="cpu")
@@ -535,11 +611,12 @@ def _check_zeros(got, ref, what: str) -> int:
     return int(differ.sum())
 
 
-def phase_assign_kernels(device, cfg, batch, card: str) -> dict:
+def phase_assign_kernels(device, cfg, batch, card: str, base=None) -> dict:
     """The assignment's kernels on the training batch's own operands: the
     periodic entry on both nearest-GT candidates (c1, c2) at full size and
     the aligned-pairs entry on the forced-anchor test, each against the
-    plain version over every pair (in chunks), with its cull counts."""
+    plain version over every pair (in chunks), with its cull counts, and
+    against the baseline build if there is one."""
     import torch
 
     from v2x_sim_tpu_torch.ops import iou_sh
@@ -562,7 +639,7 @@ def phase_assign_kernels(device, cfg, batch, card: str) -> dict:
         got = iou_cu.rotated_iou_pairs_soa_periodic(a_soa, b_soa)
         ms = time_ms(lambda: iou_cu.rotated_iou_pairs_soa_periodic(a_soa, b_soa), iters=20)
         ref = torch.empty_like(got)
-        cull = CullCount()
+        cull = IouWork()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for s in range(0, nb, CHUNK):
@@ -578,7 +655,7 @@ def phase_assign_kernels(device, cfg, batch, card: str) -> dict:
         if not err <= IOU_TOL:
             raise AssertionError(f"periodic entry on {name}: max |kernel - plain| = {err} > {IOU_TOL}")
         soft = _check_zeros(got, ref, f"periodic entry on {name}")
-        bound_ms, bound_by = iou_bound(nb, cull.passed, 4 * 5 * n + iou_cu.PERIODIC_BYTES_PER_PAIR * nb)
+        bound_ms, bound_by = cull.periodic_bound(n)
         log(f"[5] rotated_iou_pairs_periodic {b} x {n} = {nb} pairs (candidate {name}): "
             f"max_abs_err={err:.3e} over every pair (plain version in {-(-nb // CHUNK)} chunks of "
             f"{CHUNK}); exact zeros equal but at {soft} pairs with plain IoU < 1e-6; share with IoU > 0 "
@@ -586,6 +663,8 @@ def phase_assign_kernels(device, cfg, batch, card: str) -> dict:
             f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
         out["periodic"].append({"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                                 "bound_by": bound_by})
+        time_against(base, "v2x_rotated_iou_pairs_periodic", (a_soa, b_soa), (n, nb), nb,
+                     f"periodic entry on candidate {name}", card)
         del got, ref, b_soa
 
     # The forced-anchor test: each GT against its own cell's K anchors.
@@ -596,16 +675,18 @@ def phase_assign_kernels(device, cfg, batch, card: str) -> dict:
     err = float((got - ref).abs().max())
     if not err <= IOU_TOL:
         raise AssertionError(f"pairs entry on the forced-anchor test: max |kernel - plain| = {err}")
-    cull = CullCount()
+    cull = IouWork(cull=False)
     cull.add(gt_op.T, own_op.T)
     ms = time_ms(lambda: iou_cu.rotated_iou_pairs_soa(gt_op, own_op), iters=50)
     plain_ms = time_ms(lambda: iou_sh.rotated_iou(gt_op.T, own_op.T), iters=10)
-    bound_ms, bound_by = iou_bound(pairs, cull.passed, iou_cu.BYTES_PER_PAIR * pairs)
+    bound_ms, bound_by = cull.pairs_bound()
     log(f"[5] rotated_iou_pairs {pairs} pairs (the batch's forced-anchor test, padded GT "
         f"included): max_abs_err={err:.3e}; {cull}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
     out["pairs"] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by}
+    time_against(base, "v2x_rotated_iou_pairs", (gt_op, own_op), (pairs,), pairs,
+                 "aligned pairs on the forced-anchor test", card)
     return out
 
 
@@ -678,6 +759,10 @@ def phase_train_timing(device, cfg, variables, batch, card: str, periodic_ms: fl
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
+    parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
+                        "(same C entry points) to time against this one on the main path's operands")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -689,6 +774,7 @@ def main() -> int:
         from v2x_sim_tpu_torch.configs.config import Config
         from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec
         from v2x_sim_tpu_torch.models.det.net import DetModel
+        from v2x_sim_tpu_torch.ops.cuda import build, iou_cu
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing beside this script: {e}", file=sys.stderr)
         return 2
@@ -705,16 +791,21 @@ def main() -> int:
     cfg = Config()  # production geometry: 256x256x13, 6 agents, fusion at stage 3
     spec = SyntheticSpec(points_per_agent=8192, num_vehicles=12, max_gt=32)
     phase_build()
+    base = None
+    if args.baseline is not None:
+        path = args.baseline.resolve()
+        base = iou_cu.declare(build.load(path.stem, path.parent))
+        log(f"[1] baseline {args.baseline} built")
     k = phase_kernel(device, card, groups=BATCH * cfg.num_agents, n_random=1 << 20,
                      own_pairs=spec.max_gt * cfg.anchors.num_anchors)
 
     variables = random_flax_variables(DetModel(cfg, "disco"), seed=0)
-    main_path = phase_main_path(device, cfg, spec, BATCH, variables, card)
+    main_path = phase_main_path(device, cfg, spec, BATCH, variables, card, base)
     phase_timing(device, cfg, variables, main_path["batches"][0], card)
     predict_launches, nms = main_path["launches"], main_path["nms_matrix"]
     del main_path
     train = phase_train(device, cfg, spec, BATCH, variables)
-    assign = phase_assign_kernels(device, cfg, train["batch"], card)
+    assign = phase_assign_kernels(device, cfg, train["batch"], card, base)
     per = {key: float(np.mean([c[key] for c in assign["periodic"]]))
            for key in ("ms", "plain_ms", "bound_ms")}
     phase_train_timing(device, cfg, variables, train["batch"], card, per["ms"])

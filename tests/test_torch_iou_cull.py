@@ -127,9 +127,12 @@ def _popc(x):
     return bin(x).count("1")
 
 
-def _kernel_clip_iou(ca, cb, area_a, area_b):
+def _kernel_clip_iou(ca, cb, area_a, area_b, walk=None):
     """One pair, as csrc/rotated_iou.cu::intersection and iou compute it
-    (without the FMA contraction nvcc applies), from float32 corners."""
+    (without the FMA contraction nvcc applies), from float32 corners. With
+    a `walk` list, it appends the vertices taken, side changes and vertices
+    kept over the 4 stages, and the final vertex count."""
+    taken = changes = kept = 0
     px, py = [F(v) for v in ca[:, 0]], [F(v) for v in ca[:, 1]]
     bx, by = [F(v) for v in cb[:, 0]], [F(v) for v in cb[:, 1]]
     count = 4
@@ -142,6 +145,7 @@ def _kernel_clip_iou(ca, cb, area_a, area_b):
             if ex * (py[i] - ea_y) - ey * (px[i] - ea_x) >= -EPS:
                 inside |= 1 << i
         nxt = (inside >> 1) | (((inside & 1) << (nv - 1)) if nv > 0 else 0)
+        taken, changes, kept = taken + nv, changes + _popc(inside ^ nxt), kept + _popc(inside)
         qx, qy = [None] * 8, [None] * 8
         crossed = 0
         c = inside ^ nxt
@@ -168,6 +172,8 @@ def _kernel_clip_iou(ca, cb, area_a, area_b):
         count = _popc(inside) + _popc(crossed)
         px, py = qx, qy
     nv = min(count, 8)
+    if walk is not None:
+        walk.extend((taken, changes, kept, nv))
     area2 = F(0.0)
     for i in range(nv):
         j = 0 if i + 1 == nv else i + 1
@@ -223,3 +229,19 @@ def test_kernel_clip_model_equals_plain_version(case):
     want = iou_sh.rotated_iou(a, b).numpy()
     assert (want > 0).any()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(CLIP_CASES))
+def test_clip_profile_counts_what_the_kernel_clip_walks(case):
+    """iou_sh.clip_profile, from which chip_smoke.py counts the kernel's
+    operations, equals the model's walk pair by pair."""
+    a, b = (torch.from_numpy(x) for x in CLIP_CASES[case])
+    ca, cb = box_corners(a).numpy(), box_corners(b).numpy()
+    want = []
+    for i in range(len(a)):
+        walk = []
+        _kernel_clip_iou(ca[i], cb[i], 1.0, 1.0, walk)
+        want.append(walk)
+    got = np.stack([t.numpy() for t in iou_sh.clip_profile(a, b)], axis=-1)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert (got[:, 1] > 0).any()

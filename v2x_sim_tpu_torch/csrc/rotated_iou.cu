@@ -11,12 +11,12 @@
 // inter / max(areaA + areaB - inter, 1e-8), 0 when fewer than 3 vertices
 // remain. The plain PyTorch version is v2x_sim_tpu_torch/ops/iou_sh.py.
 //
-// What bounds it on this card: a clipped pair costs ~0.6k counted
+// What bounds it on this card: a clipped pair costs ~0.5k counted
 // operations (below), most of them compares, selects and integer work,
 // each one issued instruction, against 44 bytes moved; but the anchor
 // assignment's pairs mostly lie far apart, and an exact 0 needs no clip.
 // With the design below the periodic entry on the assignment's operands
-// is bound by its bytes (24 a pair). The design:
+// is bound by its bytes (20 a culled pair, 24 a clipped one). The design:
 //
 // 1. Cull. A pair whose circumscribed circles are separated,
 //      |c_a - c_b|^2 > (r_a + r_b)^2 (1 + kCullRel) + kCullAbs,
@@ -28,13 +28,15 @@
 //    directly. Boxes with a side under kCullMinSide (the zero-size padded
 //    GT among them) or a non-finite size get an infinite radius: they are
 //    never culled and go through the clip as before.
-// 2. Queue. A block takes a tile of pairs (8 a thread in the periodic
-//    entry, 4 in the matrix, 1 in the aligned pairs). The cull phase
+// 2. Queue. The periodic and matrix entries give a block a tile of pairs
+//    (8 a thread in the periodic entry, 4 in the matrix). The cull phase
 //    writes the zeros and appends the survivors' tile indices to a
 //    shared-memory queue (one ballot, one popc and one shared atomic per
 //    warp); after a barrier the clip phase runs the queue densely, so no
 //    lane idles on a culled pair while others clip. One launch, no host
-//    synchronisation.
+//    synchronisation. The aligned-pairs entry clips one pair a thread with
+//    no cull: its only operands on the main path, the forced-anchor test,
+//    all overlap.
 // 3. Clip. The polygon lives in this thread's slots in shared memory,
 //    laid out [slot][threadIdx.x]: the row stride is a multiple of 32
 //    words, so the bank is threadIdx.x % 32 whatever the slot, and two
@@ -56,19 +58,24 @@
 // precise sinf/cosf and IEEE division.
 //
 // Op count (each fp32 add/sub/mul/div/abs/compare/select or integer
-// popc/and/add/compare = 1):
-//   cull, every pair: 2 radii x (2 mul, add, sqrt, half, 2 cmp, sel),
-//     centre deltas 2, distance 3, sum 1, threshold 3, compare 1      =   26
-//   clip, per pair that passes, at the largest polygons that clipping two
-//   quads passes through (nv = 4, 5, 6, 7 vertices into stages 1-4, two
-//   crossings and nv kept vertices each):
-//     corners, 2 boxes: 2 x (sin, cos, 2 halvings, 4 x 8)              72
-//     per stage: edge vector 2, side tests nv x 6, 2 crossings x
-//       (2 sub, 3 denom, 2 abs/cmp, 5 t_num, 1 div, 4 point,
-//        5 place), kept vertices nv x 6 (2 and, 2 popc, add, cmp)
-//       = 46 + 12 nv; over nv = 4..7                                   448
-//     shoelace 8 x 4, abs, half, select, union 4, max, div               41
-//     total                                                  72 + 448 + 41 = 561
+// popc/and/add/compare = 1; ops/cuda/iou_cu.py holds these numbers, and
+// chip_smoke.py counts a launch's work from its data with them):
+//   a box's corners: sin, cos, 2 halvings, 4 x 8                       36
+//   a box's cull radius: 2 mul, add, sqrt, half, 2 cmp, sel              8
+//   the cull's test of a pair, radii given: centre deltas 2,
+//     distance 3, sum 1, threshold 3, compare 1                         10
+//   a clip stage that takes nv vertices, finds c side changes and
+//     keeps k: edge vector 2, side tests 6 nv, per change (2 sub,
+//     3 denom, 2 abs/cmp, 5 t_num, 1 div, 4 point, 5 place) 22 c,
+//     per kept vertex (2 and, 2 popc, add, cmp) 6 k       2 + 6 nv + 22 c + 6 k
+//   the area of nv final vertices: shoelace 4 nv, abs, half, select,
+//     union 4, max, div                                            9 + 4 nv
+// At the largest polygons that clipping two quads passes through (nv =
+// 4, 5, 6, 7 into stages 1-4, two changes and nv kept each, 8 at the
+// end) the clip costs 448 + 41 = 489. The periodic entry computes both
+// boxes' radii for every pair and their corners for every pair it clips;
+// the matrix entry stages corners and radii once a box of its tile; the
+// aligned-pairs entry computes both boxes' corners for every pair.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -81,7 +88,7 @@ constexpr int kSlots = 8;
 constexpr int kThreads = 256;
 // Pairs per thread in one block's tile: 8 for the periodic entry, 4 for
 // the matrix (each measured fastest of 2, 4 and 8 on its main-path
-// operands), 1 for the aligned pairs.
+// operands).
 constexpr int kPerThread = 8;
 constexpr int kTile = kPerThread * kThreads;
 constexpr int kMatrixPerThread = 4;
@@ -248,35 +255,17 @@ __device__ __forceinline__ void cull_then_clip(const Src& src, int size) {
   }
 }
 
-// (a) Aligned pairs, field-major: field f of pair p at soa[f * n + p].
-struct PairsSrc {
-  const float* a;
-  const float* b;
-  float* out;
-  int64_t n, base;
-  __device__ __forceinline__ bool disjoint(int q) const {
-    const int64_t p = base + q;
-    return circles_apart(a[p], a[n + p], cull_radius(a[2 * n + p], a[3 * n + p]), b[p], b[n + p],
-                      cull_radius(b[2 * n + p], b[3 * n + p]));
-  }
-  __device__ __forceinline__ void quads(int q, Quad& qa, Quad& qb) const {
-    const int64_t p = base + q;
-    qa = make_quad(a[p], a[n + p], a[2 * n + p], a[3 * n + p], a[4 * n + p]);
-    qb = make_quad(b[p], b[n + p], b[2 * n + p], b[3 * n + p], b[4 * n + p]);
-  }
-  __device__ __forceinline__ void store(int q, float v) const { out[base + q] = v; }
-};
-
-// One pair a thread (72 blocks at the forced-anchor test's 18,432 pairs):
-// this entry is latency-bound, and a deeper tile would lengthen each
-// thread's chain. The minimum of 4 blocks an SM lets ptxas keep it in 45
-// registers without the 16 bytes it spilled at its own choice of 40.
-__global__ void __launch_bounds__(kThreads, 4)
+// (a) Aligned pairs, field-major: field f of pair p at soa[f * n + p], one
+// pair a thread.
+__global__ void __launch_bounds__(kThreads)
 rotated_iou_pairs_kernel(const float* __restrict__ a, const float* __restrict__ b,
                          float* __restrict__ out, int64_t n) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads;
-  const int64_t left = n - base;
-  cull_then_clip<1>(PairsSrc{a, b, out, n, base}, static_cast<int>(left < kThreads ? left : kThreads));
+  __shared__ float slots[4 * kSlots * kThreads];
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= n) return;
+  const Quad qa = make_quad(a[p], a[n + p], a[2 * n + p], a[3 * n + p], a[4 * n + p]);
+  const Quad qb = make_quad(b[p], b[n + p], b[2 * n + p], b[3 * n + p], b[4 * n + p]);
+  out[p] = iou(qa, qb, slots);
 }
 
 // (b) Batched matrix: a (G, N, 5) x b (G, M, 5) -> out (G, N, M). A block

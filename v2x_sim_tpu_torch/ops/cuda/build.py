@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 source and the flags, so an edited source rebuilds) and loads with
 ``ctypes``. Nothing is built when a module is imported: the first call of
 a kernel wrapper builds its library, and ``build`` compiles several
-sources at once, one ``nvcc`` process each.
+sources at once, one ``nvcc`` process each. A source from another
+directory (another version of a kernel, to time against this one) builds
+the same way, named by its content hash.
 """
 
 from __future__ import annotations
@@ -49,26 +51,26 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    src = csrc / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, Built]:
-    """Compile the named sources (all nvcc processes started together);
-    raises RuntimeError with the compiler's output if one fails."""
+def build(names: Sequence[str], csrc: Path = CSRC) -> Dict[str, Built]:
+    """Compile the named sources of `csrc` (all nvcc processes started
+    together); raises RuntimeError with the compiler's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     out: Dict[str, Built] = {}
     for name in names:
-        so = library_path(name)
+        so = library_path(name, csrc)
         if so.exists():
             log = so.with_suffix(".log")
             out[name] = Built(so, log.read_text() if log.exists() else "")
             continue
         tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -86,6 +88,6 @@ def build(names: Sequence[str]) -> Dict[str, Built]:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    return ctypes.CDLL(str(build([name])[name].path))
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """Build ``<csrc>/<name>.cu`` if needed and load it (once per process)."""
+    return ctypes.CDLL(str(build([name], csrc)[name].path))

@@ -14,21 +14,18 @@ code:
     (5, B*n) boxes, pair p reading anchor p % n without a tiled copy — the
     second Pallas function; the anchor assignment calls it twice.
 
-Each launch culls the pairs whose circumscribed circles lie apart (IoU
-exactly 0; ``iou_sh.culled`` is a plain copy of the test) and clips the
-rest densely from a per-block queue, in one launch with no host
-synchronisation.
+The periodic and matrix entry points cull the pairs whose circumscribed
+circles lie apart (IoU exactly 0; ``iou_sh.culled`` is a plain copy of the
+test) and clip the rest densely from a per-block queue, in one launch with
+no host synchronisation; the aligned-pairs entry clips every pair.
 
 A CPU tensor goes to the plain PyTorch version (``ops/iou_sh.py``). A CUDA
 tensor launches the kernel or raises; there is no fallback. Each wrapper
 counts its launches in its ``launches`` attribute.
 
-Bound on the H100, which depends on the data: ``OPS_CULL_PER_PAIR``
-scalar operations on every pair plus ``OPS_PER_PAIR`` on each pair that
-passes the cull (both counts are derived in the source's header), against
-``BYTES_PER_PAIR`` of memory traffic for the aligned-pairs entry point
-(the periodic entry point moves ``PERIODIC_BYTES_PER_PAIR``: its anchor
-table is read from L2).
+The ``OPS_*`` constants and ``clip_ops`` count the kernel's scalar
+operations as the source's header does; with the bytes a launch moves
+they give the data-dependent bound on the H100 (``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -41,16 +38,27 @@ import torch
 from v2x_sim_tpu_torch.ops import iou_sh
 from v2x_sim_tpu_torch.ops.cuda import build
 
-#: Scalar operations of the cull, on every pair (csrc/rotated_iou.cu's header).
-OPS_CULL_PER_PAIR = 26
-#: Scalar operations of the clip, on a pair that passes the cull.
-OPS_PER_PAIR = 561
-#: Bytes one aligned pair moves: two 5-float boxes in, one float out.
-BYTES_PER_PAIR = 44
-#: Bytes one periodic pair moves: one 5-float box in, one float out.
-PERIODIC_BYTES_PER_PAIR = 24
+#: Counted scalar operations (csrc/rotated_iou.cu's header): one box's
+#: corners, one box's cull radius, the cull's test of one pair.
+OPS_CORNERS = 36
+OPS_RADIUS = 8
+OPS_CULL = 10
+#: A clip stage: fixed, per vertex it takes, per side change, per kept vertex.
+OPS_STAGE, OPS_STAGE_VERTEX, OPS_CHANGE, OPS_KEPT = 2, 6, 22, 6
+#: The area of the clipped polygon: fixed, and per final vertex.
+OPS_AREA, OPS_AREA_VERTEX = 9, 4
 
-_MAX_THREADS = (2**31 - 1) * 256
+
+def clip_ops(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> int:
+    """Counted operations of the kernel's clip (corners excluded) on these
+    broadcastable (..., 5) pairs, at the vertex counts and side changes
+    they produce (``iou_sh.clip_profile``)."""
+    taken, changes, kept, final = iou_sh.clip_profile(boxes_a, boxes_b)
+    pairs = final.numel()
+    return int(
+        (4 * OPS_STAGE + OPS_AREA) * pairs + OPS_STAGE_VERTEX * taken.sum()
+        + OPS_CHANGE * changes.sum() + OPS_KEPT * kept.sum() + OPS_AREA_VERTEX * final.sum()
+    )
 
 
 @functools.cache
@@ -105,8 +113,6 @@ def rotated_iou_pairs_soa(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.Ten
     _check_cuda_operand(a_soa, "a_soa")
     _check_cuda_operand(b_soa, "b_soa")
     n = a_soa.shape[1]
-    if n > _MAX_THREADS:
-        raise ValueError(f"too many pairs for one launch: {n}")
     out = torch.empty(n, dtype=torch.float32, device=a_soa.device)
     if n == 0:
         return out
@@ -137,8 +143,6 @@ def rotated_iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Te
     _check_cuda_operand(boxes_a, "boxes_a")
     _check_cuda_operand(boxes_b, "boxes_b")
     g, n, m = boxes_a.shape[0], boxes_a.shape[1], boxes_b.shape[1]
-    if g * n * m > _MAX_THREADS:
-        raise ValueError(f"too many pairs for one launch: {g * n * m}")
     out = torch.empty((g, n, m), dtype=torch.float32, device=boxes_a.device)
     if out.numel() == 0:
         return out
@@ -167,8 +171,6 @@ def rotated_iou_pairs_soa_periodic(a_soa: torch.Tensor, b_soa: torch.Tensor) -> 
         return iou_sh.rotated_iou_pairs_soa_periodic(a_soa, b_soa)
     _check_cuda_operand(a_soa, "a_soa")
     _check_cuda_operand(b_soa, "b_soa")
-    if nb > _MAX_THREADS:
-        raise ValueError(f"too many pairs for one launch: {nb}")
     out = torch.empty(nb, dtype=torch.float32, device=a_soa.device)
     if nb == 0:
         return out

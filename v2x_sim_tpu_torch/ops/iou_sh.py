@@ -15,7 +15,7 @@ edge crossing) per slot, compacted back to 8 slots in order.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -34,16 +34,24 @@ CULL_MIN_SIDE = 1e-2
 
 
 def _clip_quad(
-    px: List[torch.Tensor], py: List[torch.Tensor], cbx, cby
+    px: List[torch.Tensor], py: List[torch.Tensor], cbx, cby, trace: Optional[list] = None
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor], torch.Tensor]:
     """Clip the 8-slot subject polygon (px, py) by the 4 edges of the CCW
-    quad (cbx, cby). Returns the clipped polygon and its vertex count."""
+    quad (cbx, cby). Returns the clipped polygon and its vertex count; with
+    a `trace` list, appends each stage's (vertices taken, side changes,
+    vertices kept)."""
     count = torch.full_like(px[0], 4, dtype=torch.int32)
     for e in range(4):
         ea_x, ea_y = cbx[e], cby[e]
         eb_x, eb_y = cbx[(e + 1) % 4], cby[(e + 1) % 4]
         ex, ey = eb_x - ea_x, eb_y - ea_y
         side = [ex * (py[i] - ea_y) - ey * (px[i] - ea_x) >= -EPS for i in range(SLOTS)]
+        if trace is not None:  # padding repeats the last vertex: no extra changes
+            trace.append((
+                count.clamp(max=SLOTS),
+                sum((side[i] != side[(i + 1) % SLOTS]).int() for i in range(SLOTS)),
+                sum((side[i] & (count > i)).int() for i in range(SLOTS)),
+            ))
         stream = []  # (x, y, valid) per stream entry
         for i in range(SLOTS):
             j = (i + 1) % SLOTS
@@ -77,13 +85,18 @@ def _clip_quad(
     return px, py, count
 
 
-def quad_intersection_area(ca: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
-    """Intersection area of convex CCW quads ca, cb: (..., 4, 2) corners."""
+def _clip_corners(ca: torch.Tensor, cb: torch.Tensor, trace: Optional[list] = None):
+    """_clip_quad of quad ca by quad cb, both (..., 4, 2) corners."""
     cax, cay = list(ca[..., 0].unbind(-1)), list(ca[..., 1].unbind(-1))
     cbx, cby = list(cb[..., 0].unbind(-1)), list(cb[..., 1].unbind(-1))
     px = cax + [cax[3]] * (SLOTS - 4)
     py = cay + [cay[3]] * (SLOTS - 4)
-    px, py, count = _clip_quad(px, py, cbx, cby)
+    return _clip_quad(px, py, cbx, cby, trace)
+
+
+def quad_intersection_area(ca: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
+    """Intersection area of convex CCW quads ca, cb: (..., 4, 2) corners."""
+    px, py, count = _clip_corners(ca, cb)
     area2 = torch.zeros_like(px[0])
     for i in range(SLOTS):
         j = (i + 1) % SLOTS
@@ -134,3 +147,17 @@ def culled(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     dy = boxes_a[..., 1] - boxes_b[..., 1]
     s = cull_radius(boxes_a) + cull_radius(boxes_b)
     return dx * dx + dy * dy > s * s * (1.0 + CULL_REL) + CULL_ABS
+
+
+def clip_profile(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Broadcastable (..., 5) boxes -> four (...,) int tensors: over the
+    clip's 4 stages, the vertices taken (at most 8 a stage), the side
+    changes (crossings tried) and the vertices kept; and the vertices of
+    the final polygon (at most 8). These are what the kernel's clip walks:
+    chip_smoke.py counts its operations from them (``iou_cu.clip_ops``).
+    Nothing on the main path calls it."""
+    boxes_a, boxes_b = torch.broadcast_tensors(boxes_a, boxes_b)
+    trace: list = []
+    _, _, count = _clip_corners(box_corners(boxes_a), box_corners(boxes_b), trace)
+    taken, changes, kept = (sum(stage[i] for stage in trace) for i in range(3))
+    return taken, changes, kept, count.clamp(max=SLOTS)
