@@ -34,6 +34,28 @@ Phases, each reported on its own line; any failure exits non-zero:
 
   6. Training timing: train scenes/sec (step only, and prepare + step) in
      fp32 and bf16, per-stage CUDA-event times, peak device memory.
+  7. Every other collaboration mode (upperbound, sum, mean, max, cat,
+     agent, when2com, who2com, v2v with 3 rounds) at the same geometry and
+     B, random weights through the bridge: predict, where the matrix
+     kernel must launch; scene 0 against the port on the CPU (logits
+     within 1e-3; each agent's kept boxes the same set with scores within
+     1e-4, unless the measured logit difference reaches one of its
+     thresholds or ties, which is counted); fp32 and bf16 timing with
+     the fusion stage's events and peak memory; one bf16 train step for
+     cat, agent, when2com and v2v (finite loss and grads, peak memory).
+  8. Late fusion over disco's predict output with config.max_boxes (512)
+     candidates per agent: the matrix kernel on the merged candidates
+     (96 x 512 x 512) against its plain version over every pair (beyond
+     1e-4, as accurate against the plain version in float64 as the fp32
+     plain version is), timed against its bound; keep masks against the
+     recomputation and, for
+     scene 0, against late_fuse on the CPU over the same detections.
+  9. DiscoNet's KD training: a disco student at kd_weight 1e5 with a
+     random upperbound teacher. Launch counts of prepare_batch (which adds
+     the teacher's merged occupancy), scene 0's loss and kd term against
+     the CPU, the loss falling over 8 fp32 steps, then fp32 and bf16
+     timing with per-stage events (the teacher's forward among them) and
+     peak memory.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -42,6 +64,10 @@ operands need (iou_cu.OPS_*, the clip counted at the vertex counts they
 produce) and the bytes they need moved. With --baseline, another version
 of csrc/rotated_iou.cu is built too and timed against this one in turns
 on the main path's operands (lines tagged [A/B]).
+
+Each kernel wrapper's launch count is set to 0 before each path (predict,
+training, every mode's predict, late fusion, KD training) and read after
+it. "[time]" lines give each phase's seconds.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -74,7 +100,12 @@ MAX_BOXES = 128
 NMS_IOU = 0.1
 SCORE_THRESHOLD = 0.3
 IOU_TOL = 1e-4  # kernel vs plain on random pairs (fp32, different FMA contraction)
+#: Where kernel and plain differ by more than IOU_TOL (late fusion's boxes,
+#: far from the origin), the kernel's error against the plain version in
+#: float64 may be at most this multiple of the fp32 plain version's.
+F64_RATIO = 2.0
 SCORE_TOL = 1e-4  # card vs CPU, where valid
+LOGIT_TOL = 1e-3  # card vs CPU logits of one scene (fp32, TF32 off)
 BOX_TOL = 1e-3  # card vs CPU boxes (m, rad), where valid: exp() of fp32 codes
 #: Assignment card vs CPU: labels may differ only at anchors whose IoU lies
 #: this close to a threshold (kernel and plain version round differently).
@@ -82,6 +113,11 @@ NEAR_THRESHOLD = 1e-4
 REG_TOL = 1e-5  # regression targets card vs CPU
 LOSS_RTOL = 1e-4  # one scene's loss card vs CPU (fp32, TF32 off)
 TRAIN_STEPS = 8  # fp32 steps on one batch over which the loss must fall
+#: The collaboration modes beyond the main path's disco, and those of them
+#: with trained fusion weights, which also take one bf16 train step.
+OTHER_MODES = ("upperbound", "sum", "mean", "max", "cat", "agent", "when2com", "who2com", "v2v")
+TRAIN_MODES = ("cat", "agent", "when2com", "v2v")
+KD_WEIGHT = 1e5  # the JAX training tool's default --kd_weight
 CHUNK = 1 << 20  # pairs per chunk of the plain version in the full-size periodic check
 PERIOD = 4099  # a prime period for the random periodic check
 
@@ -442,8 +478,10 @@ def phase_main_path(device, cfg, spec, batch_size: int, variables, card: str = "
     return {"launches": launches, "batches": batches, "nms_matrix": own}
 
 
-def phase_timing(device, cfg, variables, batch, card: str) -> dict:
-    """Predict throughput, per-stage CUDA-event times and peak memory."""
+def phase_timing(device, cfg, variables, batch, card: str, mode: str = "disco",
+                 tag: str = "[4]") -> dict:
+    """Predict throughput, per-stage CUDA-event times and peak memory of
+    `mode` in fp32 and bf16."""
     import torch
 
     from v2x_sim_tpu_torch.ops.nms import batched_nms
@@ -452,7 +490,7 @@ def phase_timing(device, cfg, variables, batch, card: str) -> dict:
 
     out = {}
     for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-        module = DetModule(cfg, "disco", dtype, device=device)
+        module = DetModule(cfg, mode, dtype, device=device)
         module.load_flax_variables(variables)
         b = batch["points"].shape[0]
         for _ in range(2):
@@ -495,7 +533,7 @@ def phase_timing(device, cfg, variables, batch, card: str) -> dict:
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         out[label] = {"scenes_per_s": rate, "stages_ms": stages, "peak_gib": peak_gib}
         split = ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-        log(f"[4] {label}: predict {rate:.2f} scenes/s at B={b} (host clock over {steps} "
+        log(f"{tag} {mode} {label}: predict {rate:.2f} scenes/s at B={b} (host clock over {steps} "
             f"synchronized calls); stages ms: {split}; peak memory {peak_gib:.2f} GiB [{card}]")
         del module
         torch.cuda.empty_cache()
@@ -758,6 +796,426 @@ def phase_train_timing(device, cfg, variables, batch, card: str, periodic_ms: fl
     return out
 
 
+def _scene_candidates(module, scene) -> dict:
+    """One scene through `module`'s model and decode, on its device, moved
+    to the CPU: the logits, the K candidates' raw scores, the sorted NMS
+    candidates (boxes, scores, valid) and the gap between the K-th and
+    (K+1)-th ranked logit differences (the top-K cut)."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops.nms import sort_candidates
+    from v2x_sim_tpu_torch.ops.postprocess import _peak_filter, decode_topk
+
+    with torch.inference_mode():
+        bt = module.to_device(scene)
+        am = bt["agent_mask"].to(torch.bool)
+        out = module.model(module.model_input(bt), bt["trans"], am)
+        boxes, scores, valid = decode_topk(out.cls_logits, out.reg, module.anchors, MAX_BOXES,
+                                           SCORE_THRESHOLD, am, peak_window=module.peak_window)
+        sb, ss, sv = sort_candidates(boxes[0], scores[0], valid[0])
+        diff = (out.cls_logits[..., 1] - out.cls_logits[..., 0])[0]
+        if module.peak_window:
+            diff = _peak_filter(diff, module.peak_window)
+        top = torch.topk(diff.reshape(diff.shape[0], -1), MAX_BOXES + 1, dim=-1).values
+    return {"logits": out.cls_logits.cpu(), "raw_scores": scores[0].cpu(), "boxes": sb.cpu(),
+            "scores": ss.cpu(), "valid": sv.cpu(), "cut_gap": (top[:, -2] - top[:, -1]).cpu()}
+
+
+def _near_problems(c: dict, eps_logit: float) -> "torch.Tensor":
+    """Per agent, whether a difference of `eps_logit` in the logits could
+    change its kept set: the top-K cut within eps_logit; a candidate's
+    score within eps_logit / 2 (the sigmoid's slope is at most 1/4, on
+    either side) of the score threshold; two neighbors in score order that
+    close and overlapping (a swap changes which suppresses which); or a
+    pair whose IoU lies within IOU_TOL of the NMS threshold."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops import iou_sh
+
+    eps_score = eps_logit / 2
+    s, v = c["scores"], c["valid"]
+    iou = iou_sh.rotated_iou_matrix(c["boxes"], c["boxes"])
+    near = c["cut_gap"].abs() <= eps_logit
+    near |= ((c["raw_scores"] - SCORE_THRESHOLD).abs() <= eps_score).any(dim=1)
+    tie = ((s[:, :-1] - s[:, 1:]).abs() <= eps_score) & v[:, :-1] & v[:, 1:]
+    near |= (tie & (iou.diagonal(1, dim1=1, dim2=2) > NMS_IOU - IOU_TOL)).any(dim=1)
+    both = v[:, :, None] & v[:, None, :]
+    near |= (((iou - NMS_IOU).abs() <= IOU_TOL) & both).any(dim=(1, 2))
+    return near
+
+
+def _same_kept_set(boxes_a, scores_a, boxes_b, scores_b):
+    """Whether two agents' kept boxes are the same set (each box within
+    BOX_TOL of one on the other side; the order may differ where scores
+    tie), and the largest score difference between matched boxes."""
+    if boxes_a.shape[0] != boxes_b.shape[0]:
+        return False, 0.0
+    if boxes_a.shape[0] == 0:
+        return True, 0.0
+    d = (boxes_a[:, None] - boxes_b[None]).abs().amax(dim=-1)
+    match = d.argmin(dim=1)
+    ok = bool((d.amin(dim=1) <= BOX_TOL).all()) and bool((d.amin(dim=0) <= BOX_TOL).all())
+    return ok, float((scores_a - scores_b[match]).abs().max())
+
+
+def _check_scene_on_cpu(module, cfg, variables, scene, got, mode: str, opts: dict) -> str:
+    """Predict one scene with the port on the CPU (same weights, fp32) and
+    hold the card's result `got` (that scene's NMSResult) to it: logits
+    within LOGIT_TOL; each agent's kept boxes the same set, scores within
+    SCORE_TOL, unless the measured logit difference could change that
+    agent's kept set (_near_problems, on the CPU's candidates)."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops.nms import NMSResult
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    cpu = DetModule(cfg, mode, torch.float32, device="cpu", **opts)
+    cpu.load_flax_variables(variables)
+    t0 = time.perf_counter()
+    ref = cpu.predict(scene, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
+    cpu_s = time.perf_counter() - t0
+    c_cpu, c_dev = _scene_candidates(cpu, scene), _scene_candidates(module, scene)
+    d_logit = float((c_cpu["logits"] - c_dev["logits"]).abs().max())
+    if not d_logit <= LOGIT_TOL:
+        raise AssertionError(f"{mode}: logits card vs CPU differ by {d_logit} > {LOGIT_TOL}")
+    near = _near_problems(c_cpu, 2 * d_logit)
+    dev = NMSResult(*(t[0].cpu() for t in got))
+    same, d_scores = [], 0.0
+    for a in range(near.numel()):
+        kd, kc = dev.valid[a], ref.valid[0, a]
+        ok, ds = _same_kept_set(dev.boxes[a][kd], dev.scores[a][kd], ref.boxes[0, a][kc],
+                                ref.scores[0, a][kc])
+        same.append(ok)
+        if ok:
+            d_scores = max(d_scores, ds)
+    differ = ~torch.tensor(same)
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{mode}: kept boxes differ card vs CPU at agents "
+                             f"{torch.nonzero(differ & ~near).flatten().tolist()}, none near a "
+                             f"threshold (max |d logit| {d_logit:.2e})")
+    if not d_scores <= SCORE_TOL:
+        raise AssertionError(f"{mode}: kept scores card vs CPU differ by {d_scores}")
+    return (f"scene 0 card vs CPU: max |d logit| {d_logit:.2e}; kept sets equal at "
+            f"{int((~differ).sum())}/{differ.numel()} agents, positions equal at "
+            f"{int((dev.valid == ref.valid[0]).all(dim=1).sum())} ({int(differ.sum())} differ; "
+            f"{int(near.sum())} agents lie within the logit difference of a threshold or tie), "
+            f"{int(ref.valid.sum())} kept on the CPU, max |d score| {d_scores:.2e} (CPU {cpu_s:.1f} s)")
+
+
+def _when2com_margin(module, batch) -> str:
+    """The smallest distance of a real source's soft weight from the eval
+    threshold 1/n on this batch (a link nearer than rounding could flip
+    between the card and the CPU)."""
+    import torch
+
+    from v2x_sim_tpu_torch.models.backbone import unfold_agents
+
+    with torch.inference_mode():
+        bt = module.to_device(batch)
+        am = bt["agent_mask"].to(torch.bool)
+        feats = module.model.encode(module.model_input(bt))[module.model.layer]
+        f = unfold_agents(feats.permute(0, 2, 3, 1), am.shape[1])
+        attn = module.model.fusion.attention(f, am, train=True)
+        uniform = 1.0 / am.sum(1).clamp(min=1).float()
+        gap = (attn - uniform[:, None, None]).abs()[am[:, None, :].expand_as(attn)]
+    return f"min |attention - 1/n| over real links {float(gap.min()):.2e}"
+
+
+def phase_modes(device, cfg, batch, card: str, seed: int = 10) -> dict:
+    """Every other collaboration mode at full width: predict on the card
+    (the matrix kernel's launches must rise), scene 0 against the port on
+    the CPU, fp32 and bf16 timing with the fusion stage's CUDA events and
+    peak memory, and one bf16 train step for the trained fusion modules."""
+    import torch
+
+    from v2x_sim_tpu_torch.bridge import random_flax_variables
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.ops.nms import NMSResult
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    out = {"launches": {}, "timing": {}, "train": {}}
+    scene = {key: v[:1] for key, v in batch.items()}
+    for i, mode in enumerate(OTHER_MODES):
+        t0 = time.perf_counter()
+        opts = {"v2v_rounds": 3, "v2v_msg_norm": False} if mode == "v2v" else {}
+        variables = random_flax_variables(DetModel(cfg, mode, **opts), seed=seed + i)
+        module = DetModule(cfg, mode, torch.float32, device=device, **opts)
+        module.load_flax_variables(variables)
+        iou_cu.reset_launches()
+        res = module.predict(batch, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
+        torch.cuda.synchronize()
+        launches = iou_cu.rotated_iou_matrix.launches
+        if device.type == "cuda" and launches < 1:
+            raise AssertionError(f"{mode}: predict never launched the rotated-IoU matrix kernel")
+        if not (bool(torch.isfinite(res.boxes).all()) and bool(torch.isfinite(res.scores).all())):
+            raise AssertionError(f"{mode}: non-finite predict output")
+        out["launches"][mode] = launches
+        first = NMSResult(*(t[:1] for t in res))
+        extra = f"; {_when2com_margin(module, scene)}" if mode == "when2com" else ""
+        log(f"[7] {mode}: predict at B={BATCH}: rotated_iou_matrix launches={launches}, kept "
+            f"{int(res.valid.sum())}; {_check_scene_on_cpu(module, cfg, variables, scene, first, mode, opts)}"
+            f"{extra}")
+        del module, res, first
+        torch.cuda.empty_cache()
+        out["timing"][mode] = phase_timing(device, cfg, variables, batch, card, mode, tag="[7]")
+        if mode in TRAIN_MODES:
+            out["train"][mode] = _bf16_train_step(device, cfg, variables, batch, mode, opts, card)
+        log(f"[7] {mode}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _bf16_train_step(device, cfg, variables, batch, mode: str, opts: dict, card: str) -> dict:
+    """One full-width bf16 prepare + train step: finite loss and grads,
+    and its peak memory."""
+    import torch
+
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    module = DetModule(cfg, mode, torch.bfloat16, device=device, **opts)
+    module.load_flax_variables(variables)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = module.train_step(module.prepare_batch(batch))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError(f"{mode}: non-finite bf16 training loss")
+    if not all(bool(torch.isfinite(p.grad).all()) for p in module.model.parameters()):
+        raise AssertionError(f"{mode}: non-finite bf16 gradients")
+    log(f"[7] {mode} bf16 train step at B={batch['points'].shape[0]}: loss "
+        f"{float(metrics['loss']):.4f}, grads finite, first prepare + step {secs:.2f} s (host "
+        f"clock), peak memory {peak:.2f} GiB [{card}]")
+    del module
+    torch.cuda.empty_cache()
+    return {"loss": float(metrics["loss"]), "peak_gib": peak}
+
+
+def phase_late_fusion(device, cfg, variables, batch, card: str) -> dict:
+    """Late fusion over disco's predict output with config.max_boxes (512)
+    candidates per agent, as the JAX package's test tool runs it: the
+    matrix kernel on the merged candidates (G x 512 x 512) against its
+    plain version over every pair, timed against its data-dependent
+    bound; the keep mask of the card's late_fuse against the recomputed
+    candidates' and, for scene 0, against late_fuse on the CPU over the
+    same detections."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops import iou_sh
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.ops.nms import greedy_keep, sort_candidates
+    from v2x_sim_tpu_torch.ops.postprocess import late_fuse, late_fuse_candidates
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    k = cfg.max_boxes
+    module = DetModule(cfg, "disco", torch.float32, device=device)
+    module.load_flax_variables(variables)
+    det = module.predict(batch, k, NMS_IOU, SCORE_THRESHOLD)
+    bt = module.to_device(batch)
+    am = bt["agent_mask"].to(torch.bool)
+    args = (det.boxes, torch.where(det.valid, det.scores, 0.0), det.valid, bt["trans"], am)
+    iou_cu.reset_launches()
+    fused = late_fuse(*args, NMS_IOU, k)
+    torch.cuda.synchronize()
+    launches = iou_cu.rotated_iou_matrix.launches
+    if device.type == "cuda" and launches != 1:
+        raise AssertionError(f"late_fuse launched the matrix kernel {launches} times, want 1")
+    if not (bool(torch.isfinite(fused.boxes).all()) and bool(torch.isfinite(fused.scores).all())):
+        raise AssertionError("non-finite late fusion output")
+
+    with torch.inference_mode():
+        sb, _, sv = sort_candidates(*(t.reshape((-1,) + t.shape[2:])
+                                      for t in late_fuse_candidates(*args, k)))
+        sb = sb.contiguous()
+        g = sb.shape[0]
+        iou_k = iou_cu.rotated_iou_matrix(sb, sb)
+        iou_p = torch.empty_like(iou_k)
+        step = max(1, CHUNK // (k * k))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for s in range(0, g, step):
+            iou_p[s:s + step] = iou_sh.rotated_iou_matrix(sb[s:s + step], sb[s:s + step])
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = float((iou_k - iou_p).abs().max())
+        # Merged boxes lie far from the ego origin, where both fp32 versions
+        # lose digits to cancellation in the clip and the shoelace area:
+        # beyond IOU_TOL, hold each against the plain version in float64.
+        iou_64 = torch.empty(iou_k.shape, dtype=torch.float64, device=device)
+        for s in range(0, g, step):
+            b64 = sb[s:s + step].double()
+            iou_64[s:s + step] = iou_sh.rotated_iou_matrix(b64, b64)
+        err_k64 = float((iou_k - iou_64).abs().max())
+        err_p64 = float((iou_p - iou_64).abs().max())
+        if not (err <= IOU_TOL or err_k64 <= F64_RATIO * err_p64):
+            raise AssertionError(
+                f"late fusion matrix: max |kernel - plain| = {err} > {IOU_TOL}, and against float64 "
+                f"the kernel errs by {err_k64}, the fp32 plain version by {err_p64}")
+        reach = float(sb[..., :2].abs().max())
+        keep_k, keep_p = greedy_keep(iou_k, sv, NMS_IOU), greedy_keep(iou_p, sv, NMS_IOU)
+        near = ((iou_p - NMS_IOU).abs() <= max(IOU_TOL, err)).any(dim=(1, 2))
+        differ = (keep_k != keep_p).any(dim=1)
+        if bool((differ & ~near).any()):
+            raise AssertionError("late fusion keep masks differ kernel vs plain away from the threshold")
+        if not torch.equal(keep_k, fused.valid.reshape(g, k)):
+            raise AssertionError("late_fuse's keep mask differs from its candidates' recomputation")
+        cull = IouWork()
+        for s in range(0, g, step):
+            cull.add(sb[s:s + step, :, None], sb[s:s + step, None])
+        ms = time_ms(lambda: iou_cu.rotated_iou_matrix(sb, sb), iters=20)
+        bound_ms, bound_by = cull.matrix_bound(g, k, k)
+    log(f"[8] late_fuse over disco's predict at B={BATCH}, {k} candidates per agent: "
+        f"rotated_iou_matrix launches={launches}; merged candidates valid {int(sv.sum())}, kept "
+        f"{int(fused.valid.sum())}; matrix {g}x{k}x{k} max_abs_err={err:.3e} over every pair "
+        f"(against the plain version in float64: kernel {err_k64:.3e}, fp32 plain {err_p64:.3e}; "
+        f"box centers reach {reach:.0f} m from the ego); "
+        f"keep masks kernel vs plain equal in {int((~differ).sum())}/{g} problems (others within "
+        f"max(IOU_TOL, that error) of the threshold: {int(differ.sum())})")
+    log(f"[8] rotated_iou_matrix {g}x{k}x{k} on late fusion's merged candidates: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms ({-(-g // step)} chunks), bound {bound_ms:.5f} ms ({bound_by}), "
+        f"share {bound_ms / ms:.1%}; {cull} [{card}]")
+
+    # Scene 0: late_fuse on the CPU over the card's own detections.
+    a = am.shape[1]
+    ref = late_fuse(*(t[:1].cpu() for t in args), NMS_IOU, k)
+    got = fused.valid[:1].cpu()
+    if not torch.equal(got, ref.valid):
+        near0 = near[:a].cpu()
+        rows = (got != ref.valid).any(dim=-1).reshape(-1)
+        if bool((rows & ~near0).any()):
+            raise AssertionError("late fusion scene 0: keep masks differ card vs CPU away from the threshold")
+    v = ref.valid & got
+    d_boxes = float((fused.boxes[:1].cpu()[v] - ref.boxes[v]).abs().max()) if v.any() else 0.0
+    if not d_boxes <= BOX_TOL:
+        raise AssertionError(f"late fusion scene 0: boxes card vs CPU differ by {d_boxes}")
+    log(f"[8] late fusion scene 0 card vs CPU on the same detections: keep masks "
+        f"{'equal' if torch.equal(got, ref.valid) else 'equal up to problems near the threshold'} "
+        f"({int(ref.valid.sum())} kept), max |d box| {d_boxes:.2e}")
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_kd(device, cfg, variables, batch, card: str, seed: int = 30) -> dict:
+    """DiscoNet's KD training at full width: a disco student with
+    kd_weight KD_WEIGHT and a random upperbound teacher. Launch counts of
+    one prepare_batch, finite grads, scene 0's loss (kd included) against
+    the port on the CPU, the loss falling over TRAIN_STEPS fp32 steps, then
+    fp32 and bf16 timing with per-stage events and peak memory."""
+    import torch
+
+    from v2x_sim_tpu_torch.bridge import random_flax_variables
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    teacher = random_flax_variables(DetModel(cfg, "upperbound"), seed=seed)
+
+    def make(dtype, dev):
+        m = DetModule(cfg, "disco", dtype, device=dev, kd_weight=KD_WEIGHT)
+        m.load_flax_variables(variables)
+        m.load_teacher_flax_variables(teacher)
+        return m
+
+    module = make(torch.float32, device)
+    iou_cu.reset_launches()
+    prepared = module.prepare_batch(batch)
+    metrics = module.train_step(prepared)
+    torch.cuda.synchronize()
+    launches = {"periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches,
+                "pairs": iou_cu.rotated_iou_pairs_soa.launches}
+    if device.type == "cuda" and (launches["periodic"] != 2 or launches["pairs"] < 1):
+        raise AssertionError(f"KD prepare_batch launched {launches}: want periodic 2, pairs >= 1")
+    if not all(bool(torch.isfinite(p.grad).all()) for p in module.model.parameters()):
+        raise AssertionError("KD: non-finite gradients")
+    if "kd_loss" not in metrics:
+        raise AssertionError("KD: no kd_loss in the metrics")
+    log(f"[9] KD prepare_batch + train_step at B={BATCH} (kd_weight {KD_WEIGHT:g}, kd_reduce "
+        f"mean): launches {launches}; metrics "
+        + ", ".join(f"{n} {float(v):.6g}" for n, v in metrics.items()))
+
+    cpu = make(torch.float32, "cpu")
+    cpu.model.load_state_dict({key: v.cpu() for key, v in module.model.state_dict().items()})
+    scene = {key: v[:1] for key, v in prepared.items()}
+    with torch.no_grad():
+        loss_d, met_d = module.loss(scene, train=True)
+        loss_c, met_c = cpu.loss({key: v.cpu() for key, v in scene.items()}, train=True)
+    rel = {key: abs(float(met_d[key]) - float(met_c[key])) / abs(float(met_c[key])) for key in met_c}
+    if not max(rel.values()) <= LOSS_RTOL:
+        raise AssertionError(f"KD scene 0 loss card vs CPU: rel {rel} > {LOSS_RTOL}")
+    del cpu
+    losses = [float(metrics["loss"])]
+    for _ in range(TRAIN_STEPS - 1):
+        losses.append(float(module.train_step(prepared)["loss"]))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"KD: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    log(f"[9] KD scene 0 card vs CPU: loss {float(loss_d):.6f} vs {float(loss_c):.6f}, kd_loss "
+        f"{float(met_d['kd_loss']):.6g} vs {float(met_c['kd_loss']):.6g} (max rel {max(rel.values()):.2e}, "
+        f"tol {LOSS_RTOL}); loss over {TRAIN_STEPS} fp32 steps on one batch: "
+        + " ".join(f"{x:.2f}" for x in losses))
+    del module, prepared
+    torch.cuda.empty_cache()
+
+    out = {}
+    b = batch["points"].shape[0]
+    for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        module = make(dtype, device)
+        prepared = module.prepare_batch(batch)
+        module.train_step(prepared)
+        torch.cuda.synchronize()
+        steps = 3
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            module.train_step(prepared)
+        torch.cuda.synchronize()
+        step_rate = b * steps / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            module.train_step(module.prepare_batch(batch))
+        torch.cuda.synchronize()
+        e2e_rate = b * 2 / (time.perf_counter() - t0)
+        del prepared
+
+        names = ("upload", "voxelize", "merged occupancy", "assign", "teacher", "forward",
+                 "loss", "backward", "optimizer")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.reset_peak_memory_stats()
+        ev[0].record()
+        bt = module.to_device(batch)
+        ev[1].record()
+        occ = module.model_input(bt)
+        ev[2].record()
+        t_occ = module.merged_occupancy(bt)
+        ev[3].record()
+        prep = {"occupancy": occ, "trans": bt["trans"], "agent_mask": bt["agent_mask"],
+                "teacher_occupancy": t_occ, **module.targets(bt)}
+        ev[4].record()
+        t_feat = module.teacher_features(prep)
+        ev[5].record()
+        module.optimizer.zero_grad(set_to_none=True)
+        o = module.model(occ, bt["trans"], bt["agent_mask"].to(torch.bool), train=True)
+        ev[6].record()
+        loss, _ = module.loss_from_output(o, prep, t_feat)
+        ev[7].record()
+        loss.backward()
+        ev[8].record()
+        module.optimizer.step()
+        ev[9].record()
+        torch.cuda.synchronize()
+        stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        out[label] = {"step_scenes_per_s": step_rate, "e2e_scenes_per_s": e2e_rate,
+                      "stages_ms": stages, "peak_gib": peak_gib}
+        split = ", ".join(f"{n} {v:.3f}" for n, v in stages.items())
+        log(f"[9] KD {label}: train {step_rate:.2f} scenes/s step only, {e2e_rate:.2f} scenes/s "
+            f"prepare + step, at B={b} (host clock, synchronized); stages ms: {split}; peak memory "
+            f"{peak_gib:.2f} GiB [{card}]")
+        del module, bt, occ, t_occ, prep, t_feat, o, loss
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -790,37 +1248,52 @@ def main() -> int:
 
     cfg = Config()  # production geometry: 256x256x13, 6 agents, fusion at stage 3
     spec = SyntheticSpec(points_per_agent=8192, num_vehicles=12, max_gt=32)
-    phase_build()
+    t_run = time.perf_counter()
+
+    def timed(name, fn, *fargs):
+        t0 = time.perf_counter()
+        result = fn(*fargs)
+        log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+        return result
+
+    timed("build", phase_build)
     base = None
     if args.baseline is not None:
         path = args.baseline.resolve()
         base = iou_cu.declare(build.load(path.stem, path.parent))
         log(f"[1] baseline {args.baseline} built")
-    k = phase_kernel(device, card, groups=BATCH * cfg.num_agents, n_random=1 << 20,
-                     own_pairs=spec.max_gt * cfg.anchors.num_anchors)
+    k = timed("kernels", phase_kernel, device, card, BATCH * cfg.num_agents, 1 << 20,
+              spec.max_gt * cfg.anchors.num_anchors)
 
     variables = random_flax_variables(DetModel(cfg, "disco"), seed=0)
-    main_path = phase_main_path(device, cfg, spec, BATCH, variables, card, base)
-    phase_timing(device, cfg, variables, main_path["batches"][0], card)
+    main_path = timed("predict", phase_main_path, device, cfg, spec, BATCH, variables, card, base)
+    timed("predict timing", phase_timing, device, cfg, variables, main_path["batches"][0], card)
     predict_launches, nms = main_path["launches"], main_path["nms_matrix"]
+    predict_batch = main_path["batches"][0]
     del main_path
-    train = phase_train(device, cfg, spec, BATCH, variables)
-    assign = phase_assign_kernels(device, cfg, train["batch"], card, base)
+    train = timed("train", phase_train, device, cfg, spec, BATCH, variables)
+    assign = timed("assign kernels", phase_assign_kernels, device, cfg, train["batch"], card, base)
     per = {key: float(np.mean([c[key] for c in assign["periodic"]]))
            for key in ("ms", "plain_ms", "bound_ms")}
-    phase_train_timing(device, cfg, variables, train["batch"], card, per["ms"])
+    timed("train timing", phase_train_timing, device, cfg, variables, train["batch"], card,
+          per["ms"])
+    timed("modes", phase_modes, device, cfg, predict_batch, card)
+    late = timed("late fusion", phase_late_fusion, device, cfg, variables, predict_batch, card)
+    timed("kd", phase_kd, device, cfg, variables, train["batch"], card)
+    log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"
     # Times and bounds on the main path's own operands: predict's NMS
     # candidates; the training batch's forced-anchor test; the mean of the
-    # periodic entry's two launches (candidates c1 and c2).
+    # periodic entry's two launches (candidates c1 and c2). The matrix's
+    # launches and error include late fusion's (its time is on a [8] line).
     kernels = [{
         "name": "rotated_iou_matrix",
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
-        "launches": predict_launches,
-        "max_abs_err": max(k["err_mat"], nms["err"]),
+        "launches": predict_launches + late["launches"],
+        "max_abs_err": max(k["err_mat"], nms["err"], late["err"]),
         "ms": nms["ms"],
         "plain_ms": nms["plain_ms"],
         "bound_ms": nms["bound_ms"],

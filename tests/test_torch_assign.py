@@ -22,6 +22,7 @@ from v2x_sim_tpu.ops.iou_sh import rotated_iou_pairs_soa_periodic_auto
 from v2x_sim_tpu_torch.configs.config import Config, GridConfig
 from v2x_sim_tpu_torch.ops import assign, iou_sh
 from v2x_sim_tpu_torch.ops.anchors import anchor_grid
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 NEAR = 1e-5
 

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from v2x_sim_tpu.ops import iou_sh as jax_iou_sh
 from v2x_sim_tpu_torch.ops import iou_sh
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 ATOL = 1e-5
 

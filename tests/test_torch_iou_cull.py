@@ -24,6 +24,7 @@ from v2x_sim_tpu_torch.ops import iou_sh
 from v2x_sim_tpu_torch.ops.anchors import anchor_grid
 from v2x_sim_tpu_torch.ops.assign import gt_soa, nearest_gt
 from v2x_sim_tpu_torch.ops.boxes import box_corners
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _boxes(rng, n, spread, lengths=(1.0, 5.0), widths=(0.8, 3.0)):

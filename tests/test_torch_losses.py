@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from v2x_sim_tpu.utils import losses as jax_losses
 from v2x_sim_tpu_torch.utils import losses
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 RTOL = 1e-6
 

@@ -7,8 +7,12 @@ parameter kind matters and the logits vary by ~0.2 across cells) and reach the
 port through ``bridge.py``. Logits are compared at the 64x64x8 grid of
 tests/test_reference_parity.py with its atol 2e-4, at full widths
 (32..512) with one padded agent, against both the plain (s2d=False) and
-the default space-to-depth JAX execution.
+the default space-to-depth JAX execution, for every collaboration mode
+(v2v with its message GroupNorm on, so the bridge carries one), and for
+the KD outputs: ``fused_feat`` and the teacher's.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -21,15 +25,19 @@ from v2x_sim_tpu.baselines.torch_ref import key_map as jax_key_map
 from v2x_sim_tpu.configs.config import Config as JaxConfig
 from v2x_sim_tpu.configs.config import GridConfig as JaxGrid
 from v2x_sim_tpu.models.det.net import DetModel as JaxDetModel
+from v2x_sim_tpu.models.det.net import TeacherModel as JaxTeacherModel
 from v2x_sim_tpu.train.torch_convert import convert_state_dict
-from v2x_sim_tpu_torch.bridge import random_flax_variables, state_dict_from_flax
+from v2x_sim_tpu_torch.bridge import key_map, random_flax_variables, state_dict_from_flax
 from v2x_sim_tpu_torch.configs.config import Config, GridConfig
-from v2x_sim_tpu_torch.models.det.net import DetModel
+from v2x_sim_tpu_torch.models.det.net import MODES, DetModel, TeacherModel
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 VOXEL = (1.0, 1.0, 0.625)  # 64x64x8
 CFG = Config(grid=GridConfig(voxel_size=VOXEL))
 JCFG = JaxConfig(grid=JaxGrid(voxel_size=VOXEL))
 ATOL = 2e-4
+#: Per-mode model options, the same in both packages.
+MODE_KW = {"v2v": {"v2v_msg_norm": True}}
 
 
 def _inputs(seed=0, b=1):
@@ -74,20 +82,30 @@ def _perturb(variables, seed):
     return jax.tree_util.tree_unflatten(treedef, out)
 
 
-def _flax_variables(mode, seed=0):
+@functools.lru_cache(maxsize=None)
+def _init_variables(mode, seed):
     occ, trans, mask = _inputs()
-    init = JaxDetModel(config=JCFG, mode=mode, s2d=False).init(
+    init = JaxDetModel(config=JCFG, mode=mode, s2d=False, **MODE_KW.get(mode, {})).init(
         jax.random.PRNGKey(seed), jnp.asarray(occ), jnp.asarray(trans), jnp.asarray(mask),
         train=False)
     return _perturb({"params": init["params"], "batch_stats": init["batch_stats"]}, seed)
 
 
-@pytest.mark.parametrize("mode", ["lowerbound", "disco"])
+def _flax_variables(mode, seed=0):
+    """The perturbed JAX init of `mode` (one init per mode and seed; a
+    fresh top-level dict, so a test may add leaves)."""
+    v = _init_variables(mode, seed)
+    return {"params": dict(v["params"]), "batch_stats": v["batch_stats"]}
+
+
+@pytest.mark.parametrize("mode", MODES)
 def test_bridge_round_trips_through_torch_convert(mode):
     variables = _flax_variables(mode)
-    model = DetModel(CFG, mode)
+    model = DetModel(CFG, mode, **MODE_KW.get(mode, {}))
     model.load_state_dict(state_dict_from_flax(variables, mode), strict=True)
-    back = convert_state_dict(model.state_dict(), jax_key_map(mode))
+    # The port's table extends the JAX package's (which names disco's fusion only).
+    assert jax_key_map(mode).items() <= key_map(mode).items()
+    back = convert_state_dict(model.state_dict(), key_map(mode))
     got = jax.tree_util.tree_flatten_with_path(back)[0]
     want = jax.tree_util.tree_flatten_with_path(variables)[0]
     assert [jax.tree_util.keystr(p) for p, _ in got] == [jax.tree_util.keystr(p) for p, _ in want]
@@ -106,17 +124,45 @@ def test_bridge_rejects_unconsumed_leaves_and_random_tree_loads():
 
 
 @pytest.mark.parametrize("s2d", [False, True], ids=["plain", "s2d"])
-@pytest.mark.parametrize("mode", ["lowerbound", "disco"])
+@pytest.mark.parametrize("mode", MODES)
 def test_eval_logits_match_jax(mode, s2d):
     variables = _flax_variables(mode)
     occ, trans, mask = _inputs(seed=1)
-    want = JaxDetModel(config=JCFG, mode=mode, s2d=s2d).apply(
+    want = JaxDetModel(config=JCFG, mode=mode, s2d=s2d, **MODE_KW.get(mode, {})).apply(
         variables, jnp.asarray(occ), jnp.asarray(trans), jnp.asarray(mask), train=False)
 
-    model = DetModel(CFG, mode).eval()
+    model = DetModel(CFG, mode, **MODE_KW.get(mode, {})).eval()
     model.load_state_dict(state_dict_from_flax(variables, mode), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(occ), torch.from_numpy(trans), torch.from_numpy(mask))
     assert got.cls_logits.shape == (1, 6, 64, 64, 6, 2) and got.reg.shape == (1, 6, 64, 64, 6, 6)
     np.testing.assert_allclose(got.cls_logits.numpy(), np.asarray(want.cls_logits), atol=ATOL)
     np.testing.assert_allclose(got.reg.numpy(), np.asarray(want.reg), atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["disco", "upperbound"])
+def test_kd_fused_feat_and_teacher_match_jax(mode):
+    """kd=True's fused_feat (after fusion for disco; the encoder map for
+    upperbound), and TeacherModel loading an upperbound tree: all its
+    outputs, and kd_target, which stops the encoder at the fusion layer."""
+    variables = _flax_variables(mode)
+    occ, trans, mask = _inputs(seed=2)
+    want = JaxDetModel(config=JCFG, mode=mode, s2d=False, kd=True).apply(
+        variables, jnp.asarray(occ), jnp.asarray(trans), jnp.asarray(mask), train=False)
+    model = DetModel(CFG, mode, kd=True).eval()
+    model.load_state_dict(state_dict_from_flax(variables, mode), strict=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(occ), torch.from_numpy(trans), torch.from_numpy(mask))
+    assert got.fused_feat.shape == (1, 6, 8, 8, 256)
+    np.testing.assert_allclose(got.fused_feat.numpy(), np.asarray(want.fused_feat), atol=ATOL)
+    if mode != "upperbound":
+        return
+    t_want = JaxTeacherModel(config=JCFG).apply(variables, jnp.asarray(occ), train=False)
+    teacher = TeacherModel(CFG).eval()
+    teacher.load_state_dict(state_dict_from_flax(variables, "upperbound"), strict=True)
+    with torch.no_grad():
+        t_got = teacher(torch.from_numpy(occ))
+        target = teacher.kd_target(torch.from_numpy(occ))
+    for g, w in zip(t_got, t_want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+    np.testing.assert_array_equal(target.numpy(), t_got.fused_feat.numpy())

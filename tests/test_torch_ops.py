@@ -24,6 +24,7 @@ from v2x_sim_tpu.ops import warp as jax_warp
 from v2x_sim_tpu_torch.configs.config import Config, GridConfig
 from v2x_sim_tpu_torch.ops import boxes, nms, postprocess, voxelize, warp
 from v2x_sim_tpu_torch.ops.anchors import anchor_grid
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _grids(voxel):

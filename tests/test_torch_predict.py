@@ -26,6 +26,7 @@ from v2x_sim_tpu_torch.configs.config import Config, GridConfig
 from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec, generate_batch
 from v2x_sim_tpu_torch.train.det_module import DetModule
 from tests.test_torch_model import _perturb
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 K = 32
 

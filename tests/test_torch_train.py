@@ -41,6 +41,9 @@ plain execution at 2.7e-7 and 3.1e-7. So:
     first moment must equal optax's), and a JAX state after 2 steps
     (params, stats, Adam's count/mu/nu, rounded to float32 on both sides
     as the bridge carries them) continued by both for step 3.
+
+The other collaboration modes and KD take the same float64 step in
+tests/test_torch_train_modes.py.
 """
 
 import numpy as np
@@ -66,6 +69,7 @@ from v2x_sim_tpu_torch.configs.config import Config, GridConfig
 from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec, generate_batch
 from v2x_sim_tpu_torch.models.det.net import DetModel
 from v2x_sim_tpu_torch.train.det_module import DetModule
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 VOXEL = (1.0, 1.0, 0.625)  # 64x64x8
 CFG = Config(grid=GridConfig(voxel_size=VOXEL))
@@ -315,3 +319,4 @@ def test_port_loss_falls_over_steps(raw, variables):
     prep = port.prepare_batch(raw)
     losses = [port.train_step(prep)["loss"].item() for _ in range(4)]
     assert all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:])), losses
+

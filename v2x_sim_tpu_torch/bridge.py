@@ -5,15 +5,19 @@ Adam state loads into the port's optimizer. The layout rules are the
 inverse of those of ``v2x_sim_tpu/train/torch_convert.py``:
 
   * conv ``kernel`` (kh, kw, in, out)   -> ``weight`` (out, in, kh, kw)
+  * Dense ``kernel`` (in, out)          -> ``Linear.weight`` (out, in)
   * BatchNorm ``scale``/``bias``        -> ``weight``/``bias``
   * BatchNorm ``mean``/``var``          -> ``running_mean``/``running_var``
-  * biases pass through unchanged.
+  * GroupNorm ``scale``/``bias``        -> ``weight``/``bias`` (no stats)
+  * biases pass through unchanged; a module without one has no ``bias``.
 
-The module-name table is the port's own copy of
-``v2x_sim_tpu/baselines/torch_ref.py::key_map``, so the JAX package's
+The module-name table extends the port's own copy of
+``v2x_sim_tpu/baselines/torch_ref.py::key_map`` with every mode's fusion
+modules, so the JAX package's
 ``convert_state_dict(port.state_dict(), key_map(mode))`` returns the
-original tree. Trees arrive as nested dicts of numpy arrays (or anything
-``np.asarray`` takes).
+original tree. ``TeacherModel`` has DetModel's submodule names, so an
+upperbound tree loads as the teacher. Trees arrive as nested dicts of
+numpy arrays (or anything ``np.asarray`` takes).
 """
 
 from __future__ import annotations
@@ -29,9 +33,31 @@ from v2x_sim_tpu_torch.models.backbone import STAGE_CHANNELS
 _BLOCK_PARTS = (("conv1", "Conv_0"), ("bn1", "BatchNorm_0"),
                 ("conv2", "Conv_1"), ("bn2", "BatchNorm_1"))
 
+#: Each mode's fusion modules: port prefix under ``fusion.`` -> flax path
+#: under ``fusion``. sum, mean, max, lowerbound and upperbound have none.
+_FUSION_MODULES = {
+    "disco": {"edge_hidden": ("edge_hidden",), "edge_score": ("edge_score",)},
+    "cat": {"compress": ("compress",)},
+    "agent": {"score_hidden": ("score_hidden",), "score": ("score",)},
+    "when2com": {
+        **{f"query_key_net.{n}": ("query_key_net", n)
+           for n in ("Conv_0", "Conv_1", "Conv_2", "query_proj", "key_proj")},
+        "attn_w": ("attn_w",),
+    },
+    "v2v": {"conv_gru.gates": ("conv_gru", "gates"),
+            "conv_gru.candidate": ("conv_gru", "candidate"),
+            "msg_hidden": ("msg_hidden",), "msg_out": ("msg_out",),
+            "msg_norm": ("msg_norm",)},
+}
+_FUSION_MODULES["who2com"] = _FUSION_MODULES["when2com"]
+
+#: Modules with a ``scale`` that are GroupNorms: no running statistics.
+_GROUP_NORMS = frozenset({"fusion.msg_norm"})
+
 
 def key_map(mode: str = "disco") -> Dict[str, Tuple[str, ...]]:
-    """Port module prefix -> flax DetModel module path."""
+    """Port module prefix -> flax DetModel module path (V2VNet's optional
+    GroupNorm included)."""
     m: Dict[str, Tuple[str, ...]] = {}
     for i in range(len(STAGE_CHANNELS)):
         for tk, fk in _BLOCK_PARTS:
@@ -42,10 +68,16 @@ def key_map(mode: str = "disco") -> Dict[str, Tuple[str, ...]]:
     for head in ("cls_head", "reg_head"):
         m[f"{head}.conv1"] = (head, "Conv_0")
         m[f"{head}.conv2"] = (head, "Conv_1")
-    if mode == "disco":
-        m["fusion.edge_hidden"] = ("fusion", "edge_hidden")
-        m["fusion.edge_score"] = ("fusion", "edge_score")
+    for tk, fk in _FUSION_MODULES.get(mode, {}).items():
+        m[f"fusion.{tk}"] = ("fusion",) + fk
     return m
+
+
+def _tree_key_map(params: Mapping[str, Any], mode: str) -> Dict[str, Tuple[str, ...]]:
+    """key_map for the modules a flax ``params`` tree holds: V2VNet's
+    GroupNorm only where the tree has it."""
+    has_norm = "msg_norm" in params.get("fusion", {})
+    return {k: v for k, v in key_map(mode).items() if has_norm or k != "fusion.msg_norm"}
 
 
 def _node(tree: Mapping[str, Any], path: Tuple[str, ...]) -> Mapping[str, Any]:
@@ -69,15 +101,15 @@ def _param_tensors(params: Mapping[str, Any], mode: str, used: set) -> Dict[str,
     from any tree of its shape (optax's Adam moments). Records each flax
     path it reads in ``used``."""
     sd: Dict[str, torch.Tensor] = {}
-    for prefix, path in key_map(mode).items():
+    for prefix, path in _tree_key_map(params, mode).items():
         node = _node(params, path)
-        weight = "scale" if "scale" in node else "kernel"  # BatchNorm or conv
+        weight = "scale" if "scale" in node else "kernel"  # a norm, or a conv or Dense
         for tleaf, fleaf in (("weight", weight), ("bias", "bias")):
-            if fleaf == "bias" and "bias" not in node:  # the convs of ConvBlock
+            if fleaf == "bias" and "bias" not in node:  # ConvBlock's convs, attn_w
                 continue
             arr = np.asarray(node[fleaf], dtype=np.float32)
             if fleaf == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)
+                arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
             sd[f"{prefix}.{tleaf}"] = torch.from_numpy(arr.copy())
             used.add(path + (fleaf,))
     return sd
@@ -90,8 +122,8 @@ def state_dict_from_flax(variables: Mapping[str, Any], mode: str = "disco") -> D
     params, stats = variables["params"], variables.get("batch_stats", {})
     used = {"params": set(), "batch_stats": set()}
     sd = _param_tensors(params, mode, used["params"])
-    for prefix, path in key_map(mode).items():
-        if "scale" not in _node(params, path):
+    for prefix, path in _tree_key_map(params, mode).items():
+        if "scale" not in _node(params, path) or prefix in _GROUP_NORMS:
             continue
         for tleaf, fleaf in (("running_mean", "mean"), ("running_var", "var")):
             arr = np.asarray(_node(stats, path)[fleaf], dtype=np.float32)
@@ -105,7 +137,7 @@ def state_dict_from_flax(variables: Mapping[str, Any], mode: str = "disco") -> D
     return sd
 
 
-#: state_dict leaf -> (flax collection, flax leaf); conv weights are 4-d.
+#: state_dict leaf -> (flax collection, flax leaf); ``weight`` is decided by its rank.
 _FLAX_LEAF = {"bias": ("params", "bias"), "running_mean": ("batch_stats", "mean"),
               "running_var": ("batch_stats", "var")}
 
@@ -124,9 +156,11 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor], mode: str = "disco") ->
             continue
         arr = t.detach().cpu().to(torch.promote_types(t.dtype, torch.float32)).numpy()
         if leaf == "weight":
-            coll, fleaf = ("params", "kernel") if arr.ndim == 4 else ("params", "scale")
-            if arr.ndim == 4:
+            coll, fleaf = ("params", "scale") if arr.ndim == 1 else ("params", "kernel")
+            if arr.ndim == 4:  # conv
                 arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:  # Linear
+                arr = arr.T
         else:
             coll, fleaf = _FLAX_LEAF[leaf]
         node = out[coll]
@@ -172,9 +206,9 @@ def random_flax_variables(model: torch.nn.Module, seed: int) -> Dict[str, Any]:
     shapes of ``model`` (a ``DetModel``), drawn from
     ``np.random.default_rng(seed)``.
 
-    He-normal conv kernels, small random biases and BatchNorm affines, and
-    random running stats, so activations keep their scale through the
-    depth and every parameter kind affects the output."""
+    He-normal conv and Dense kernels, small random biases and norm
+    affines, and random running stats, so activations keep their scale
+    through the depth and every parameter kind affects the output."""
     rng = np.random.default_rng(seed)
     kmap = key_map(model.mode)
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
@@ -195,6 +229,9 @@ def random_flax_variables(model: torch.nn.Module, seed: int) -> Dict[str, Any]:
             o, i, kh, kw = shape
             std = math.sqrt(2.0 / (i * kh * kw))
             put("params", path + ("kernel",), rng.normal(0.0, std, (kh, kw, i, o)))
+        elif leaf == "weight" and len(shape) == 2:
+            o, i = shape
+            put("params", path + ("kernel",), rng.normal(0.0, math.sqrt(2.0 / i), (i, o)))
         elif leaf == "weight":
             put("params", path + ("scale",), rng.uniform(0.8, 1.2, shape))
         elif leaf == "bias":

@@ -25,7 +25,7 @@ unbiased variance.)
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -102,10 +102,11 @@ class STPNEncoder(nn.Module):
             cin = ch
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
-        """NCHW input in the activation dtype -> list of NCHW maps."""
+    def forward(self, x: torch.Tensor, train: bool = False, depth: Optional[int] = None) -> List[torch.Tensor]:
+        """NCHW input in the activation dtype -> list of NCHW maps, of the
+        first ``depth`` stages (all by default)."""
         feats = []
-        for block in self.blocks:
+        for block in self.blocks[:depth]:
             x = block(x, train)
             feats.append(x)
         return feats

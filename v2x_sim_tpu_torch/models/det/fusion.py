@@ -1,7 +1,8 @@
 """Intermediate fusion over the agent axis.
 
-Port of ``v2x_sim_tpu/models/det/fusion.py`` (``warp_neighbors`` and
-``DiscoFusion``). Contract:
+Port of ``v2x_sim_tpu/models/det/fusion.py``: ``warp_neighbors``, the
+parameter-free ``fuse_sum``/``fuse_mean``/``fuse_max``, and
+``CatFusion``, ``AgentWiseWeightedFusion`` and ``DiscoFusion``. Contract:
 
     fuse(feats[B, A, h, w, C], trans[B, A, A, 4, 4], mask[B, A]) ->
         fused[B, A, h, w, C]
@@ -32,6 +33,72 @@ def warp_neighbors(feats, trans, mask, grid: GridConfig) -> torch.Tensor:
     """All-pairs warp with padded sources zeroed: (B, Ai, Aj, h, w, C)."""
     warped = warp_all_pairs(feats, trans, grid)
     return warped * _src_mask(mask).to(feats.dtype)
+
+
+def fuse_sum(feats, trans, mask, grid: GridConfig) -> torch.Tensor:
+    """SumFusion: elementwise sum of the warped neighbor maps."""
+    return warp_neighbors(feats, trans, mask, grid).sum(dim=2)
+
+
+def fuse_mean(feats, trans, mask, grid: GridConfig) -> torch.Tensor:
+    """MeanFusion: the sum over real agents over their count (at least 1)."""
+    n = mask.sum(dim=1).clamp(min=1).to(feats.dtype)
+    return fuse_sum(feats, trans, mask, grid) / n[:, None, None, None, None]
+
+
+def fuse_max(feats, trans, mask, grid: GridConfig) -> torch.Tensor:
+    """MaxFusion: elementwise max over sources, padded ones at -1e9.
+    ``amax`` splits the gradient evenly among tied maxima, as JAX's max
+    does (``max(dim=...)`` would send it all to one)."""
+    warped = warp_all_pairs(feats, trans, grid)
+    warped = torch.where(_src_mask(mask), warped, torch.full((), NEG_INF, dtype=warped.dtype,
+                                                             device=warped.device))
+    return warped.amax(dim=2)
+
+
+class CatFusion(nn.Module):
+    """CatFusion: the A warped maps concatenated agent-major along channels
+    (channel ``j*C + c`` is source j's channel c), a 1x1 conv back to C,
+    ReLU. The concatenation is never built: the conv is one contraction
+    over (source, channel)."""
+
+    def __init__(self, grid: GridConfig, channels: int, num_agents: int):
+        super().__init__()
+        self.grid = grid
+        self.compress = nn.Conv2d(num_agents * channels, channels, 1)
+
+    def forward(self, feats, trans, mask, train: bool = False) -> torch.Tensor:
+        b, a, h, w, c = feats.shape
+        dt = feats.dtype
+        warped = warp_neighbors(feats, trans, mask, self.grid)  # (B, Ai, Aj, h, w, C)
+        wt = self.compress.weight[:, :, 0, 0].to(dt).reshape(c, a, c)  # (out, Aj, C)
+        x = torch.einsum("bijhwc,ojc->bihwo", warped, wt) + self.compress.bias.to(dt)
+        return torch.relu(x)
+
+
+class AgentWiseWeightedFusion(nn.Module):
+    """AgentWiseWeightedFusion: one scalar weight per (ego, source) pair from
+    the spatial mean of ``cat([ego, warped])`` through a 2-layer MLP,
+    softmax over sources, weighted sum of the warped maps. The mean of the
+    concatenation is the concatenation of the two means."""
+
+    def __init__(self, grid: GridConfig, channels: int, hidden: int = 32):
+        super().__init__()
+        self.grid = grid
+        self.score_hidden = nn.Linear(2 * channels, hidden)
+        self.score = nn.Linear(hidden, 1)
+
+    def forward(self, feats, trans, mask, train: bool = False) -> torch.Tensor:
+        dt = feats.dtype
+        warped = warp_neighbors(feats, trans, mask, self.grid)
+        ego = feats.mean(dim=(2, 3))[:, :, None].expand(-1, -1, feats.shape[1], -1)
+        pooled = torch.cat([ego, warped.mean(dim=(3, 4))], dim=-1)  # (B, Ai, Aj, 2C)
+        s = torch.relu(F.linear(pooled, self.score_hidden.weight.to(dt),
+                                self.score_hidden.bias.to(dt)))
+        s = F.linear(s, self.score.weight.to(dt), self.score.bias.to(dt))[..., 0]  # (B, Ai, Aj)
+        s = torch.where(mask[:, None, :], s, torch.full_like(s, NEG_INF))
+        attn = torch.softmax(s, dim=-1)
+        return torch.einsum("baj,bajhwc->bahwc", attn, warped)
 
 
 class DiscoFusion(nn.Module):

@@ -1,20 +1,22 @@
-"""Collaborative detection model.
+"""Collaborative detection model, every collaboration mode.
 
-Port of ``v2x_sim_tpu/models/det/net.py::DetModel`` for the ``lowerbound``
-and ``disco`` modes, in the plain layout. Input contract:
+Port of ``v2x_sim_tpu/models/det/net.py`` (``DetModel`` and
+``TeacherModel``) in the plain layout. Input contract:
 
   occupancy  (B, A, H, W, D)   per-agent BEV voxel occupancy, D z-slices
                                as channels;
   trans      (B, A, A, 4, 4)   pairwise agent transforms, trans[b, i, j] = T_{i<-j};
   agent_mask (B, A)            real-agent mask.
 
-Output: ``DetOutput(cls_logits (B, A, H, W, K, C), reg (B, A, H, W, K, 6))``
-in the activation dtype (the dtype of ``occupancy``).
+Output: ``DetOutput(cls_logits (B, A, H, W, K, C), reg (B, A, H, W, K, 6),
+fused_feat)`` in the activation dtype (the dtype of ``occupancy``);
+``fused_feat`` is the (B, A, h, w, C) map at the fusion layer after
+fusion when ``kd`` is set (the KD student feature), else None.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -29,71 +31,106 @@ from v2x_sim_tpu_torch.models.backbone import (
     unfold_agents,
     width_mult as scaled_widths,
 )
-from v2x_sim_tpu_torch.models.det.fusion import DiscoFusion
+from v2x_sim_tpu_torch.models.det import fusion as F
+from v2x_sim_tpu_torch.models.det.v2vnet import V2VNetFusion
+from v2x_sim_tpu_torch.models.det.when2com import When2comFusion
 
-#: Modes this port implements.
-MODES = ("lowerbound", "disco")
+#: The collaboration modes, as the JAX package's.
+MODES = (
+    "lowerbound",
+    "upperbound",
+    "sum",
+    "mean",
+    "max",
+    "cat",
+    "agent",
+    "when2com",
+    "who2com",
+    "v2v",
+    "disco",
+)
 
-#: The JAX package's other modes, and the ROADMAP.md queue item that ports each.
-DEFERRED_MODES = {
-    "upperbound": "queue 1 item 4 (upperbound/teacher and merged_occupancy)",
-    **dict.fromkeys(
-        ("sum", "mean", "max", "cat", "agent", "when2com", "who2com", "v2v"),
-        "queue 1 item 8 (the rest of the det fusion set)",
-    ),
-}
+#: Modes that run no fusion (upperbound's input is already merged).
+NO_FUSION = ("lowerbound", "upperbound")
+
+_FUSE_FNS = {"sum": F.fuse_sum, "mean": F.fuse_mean, "max": F.fuse_max}
 
 
 def check_mode(mode: str) -> None:
-    """Raise for a mode the port does not implement (yet)."""
-    if mode in DEFERRED_MODES:
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet: ROADMAP.md {DEFERRED_MODES[mode]}"
-        )
+    """Raise ValueError for a mode that is not one of MODES."""
     if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}")
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
 
 class DetOutput(NamedTuple):
-    """cls_logits (B, A, H, W, K, C); reg (B, A, H, W, K, 6)."""
+    """cls_logits (B, A, H, W, K, C); reg (B, A, H, W, K, 6); fused_feat
+    (B, A, h, w, C) or None."""
 
     cls_logits: torch.Tensor
     reg: torch.Tensor
+    fused_feat: Optional[torch.Tensor] = None
 
 
 class DetModel(nn.Module):
-    """Backbone + (optional) fusion + heads."""
+    """Backbone + (optional) fusion + heads for any collaboration mode.
 
-    def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0):
+    Args:
+      fusion_layer: encoder stage whose map is fused (None: the config's).
+      warp_flag: when2com/who2com only; warp the neighbors before mixing.
+      v2v_rounds, v2v_msg_norm: v2v only; GNN rounds, GroupNorm on the
+        averaged message.
+      kd: return the fusion-layer map as ``fused_feat``.
+    """
+
+    def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0,
+                 fusion_layer: Optional[int] = None, warp_flag: bool = True,
+                 v2v_rounds: int = 3, v2v_msg_norm: bool = False, kd: bool = False):
         super().__init__()
         check_mode(mode)
         self.config = config
         self.mode = mode
+        self.kd = kd
+        self.layer = config.fusion_layer if fusion_layer is None else fusion_layer
         chans = scaled_widths(width_mult)
         self.encoder = STPNEncoder(config.grid.grid_shape[2], chans)
         self.decoder = STPNDecoder(chans)
         k = config.anchors.num_anchors
         self.cls_head = ClassificationHead(chans[0], k, config.num_classes)
         self.reg_head = RegressionHead(chans[0], k, config.anchors.box_code_size)
+        grid, c = config.grid, chans[self.layer]
         if mode == "disco":
-            self.fusion = DiscoFusion(config.grid, chans[config.fusion_layer])
+            self.fusion = F.DiscoFusion(grid, c)
+        elif mode == "cat":
+            self.fusion = F.CatFusion(grid, c, config.num_agents)
+        elif mode == "agent":
+            self.fusion = F.AgentWiseWeightedFusion(grid, c)
+        elif mode in ("when2com", "who2com"):
+            self.fusion = When2comFusion(grid, c, argmax_mode=mode == "who2com",
+                                         warp_flag=warp_flag)
+        elif mode == "v2v":
+            self.fusion = V2VNetFusion(grid, c, rounds=v2v_rounds, msg_norm=v2v_msg_norm)
 
     # The forward pass in stages, so a profiler can time each one.
 
-    # ``train`` selects BatchNorm's training semantics (models/backbone.py).
+    # ``train`` selects BatchNorm's training semantics (models/backbone.py)
+    # and When2com's training attention.
 
     def encode(self, occupancy: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
         """(B, A, H, W, D) -> pyramid of (B*A, C, h, w) maps (channels-last memory)."""
         return self.encoder(fold_agents(occupancy).permute(0, 3, 1, 2), train)
 
     def fuse(self, feats: List[torch.Tensor], trans, agent_mask, train: bool = False) -> List[torch.Tensor]:
-        """Fuse the fusion-layer map across agents (no-op for lowerbound)."""
-        if self.mode == "lowerbound":
+        """Fuse the fusion-layer map across agents (no-op for lowerbound
+        and upperbound)."""
+        if self.mode in NO_FUSION:
             return feats
-        k = self.config.fusion_layer
+        k = self.layer
         a = agent_mask.shape[1]
         f = unfold_agents(feats[k].permute(0, 2, 3, 1), a)  # (B, A, h, w, C)
-        fused = self.fusion(f, trans, agent_mask, train)
+        if self.mode in _FUSE_FNS:
+            fused = _FUSE_FNS[self.mode](f, trans, agent_mask, self.config.grid)
+        else:
+            fused = self.fusion(f, trans, agent_mask, train)
         feats = list(feats)
         feats[k] = fold_agents(fused).permute(0, 3, 1, 2)
         return feats
@@ -102,8 +139,30 @@ class DetModel(nn.Module):
         decoded = self.decoder(feats, train)
         cls = unfold_agents(self.cls_head(decoded), num_agents)
         reg = unfold_agents(self.reg_head(decoded), num_agents)
-        return DetOutput(cls, reg)
+        fused = unfold_agents(feats[self.layer].permute(0, 2, 3, 1), num_agents) if self.kd else None
+        return DetOutput(cls, reg, fused)
 
     def forward(self, occupancy, trans, agent_mask, train: bool = False) -> DetOutput:
         feats = self.fuse(self.encode(occupancy, train), trans, agent_mask, train)
         return self.decode_heads(feats, occupancy.shape[1], train)
+
+
+class TeacherModel(DetModel):
+    """Early-fusion teacher for DiscoNet's KD: the upperbound model (backbone
+    and heads on merged-cloud occupancy, no fusion), exposing the
+    fusion-layer map as the KD target. An upperbound model's weights load
+    as the teacher (``bridge.key_map("upperbound")``)."""
+
+    def __init__(self, config: Config, width_mult: float = 1.0, fusion_layer: Optional[int] = None):
+        super().__init__(config, "upperbound", width_mult, fusion_layer, kd=True)
+
+    def kd_target(self, occupancy: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(B, A, H, W, D) merged occupancy -> the (B, A, h, w, C) map at the
+        fusion layer; runs the encoder only as deep as that layer."""
+        x = fold_agents(occupancy).permute(0, 3, 1, 2)
+        f = self.encoder(x, train, depth=self.layer + 1)[self.layer]
+        return unfold_agents(f.permute(0, 2, 3, 1), occupancy.shape[1])
+
+    def forward(self, occupancy: torch.Tensor, train: bool = False) -> DetOutput:
+        """Logits, regression and the fusion-layer map (``fused_feat``)."""
+        return self.decode_heads(self.encode(occupancy, train), occupancy.shape[1], train)

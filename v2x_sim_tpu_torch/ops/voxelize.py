@@ -79,3 +79,38 @@ def voxelize(
 ) -> torch.Tensor:
     """One (P, 3+) padded cloud with (P,) mask -> (H, W, D) occupancy."""
     return voxelize_batch(points, mask, grid, dtype)
+
+
+def merged_occupancy(
+    points: torch.Tensor,
+    point_mask: torch.Tensor,
+    trans: torch.Tensor,
+    agent_mask: torch.Tensor,
+    grid: GridConfig,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Early-fusion occupancy: every real agent's cloud moved into each
+    agent's frame and voxelized together (the upperbound input and the KD
+    teacher's).
+
+    Args:
+      points: (B, A, P, 3+) padded per-agent points, each in its own frame.
+      point_mask: (B, A, P).
+      trans: (B, A, A, 4, 4), trans[b, i, j] = T_{i<-j}.
+      agent_mask: (B, A).
+
+    Returns:
+      (B, A, H, W, D): slice [b, i] voxelizes the union over real agents j
+      of j's points through T_{i<-j}. The transform is written out as sums
+      of products in float32 (at least); a point within rounding of a voxel
+      face may land on either side of it.
+    """
+    b, a, p = point_mask.shape
+    acc = torch.promote_types(points.dtype, torch.float32)
+    xyz = points[..., :3].to(acc)[:, None]  # (B, 1, Aj, P, 3)
+    t = trans.to(acc)[:, :, :, None]  # (B, Ai, Aj, 1, 4, 4)
+    moved = torch.stack(
+        [t[..., r, 0] * xyz[..., 0] + t[..., r, 1] * xyz[..., 1] + t[..., r, 2] * xyz[..., 2]
+         + t[..., r, 3] for r in range(3)], dim=-1)  # (B, Ai, Aj, P, 3)
+    mmask = (point_mask & agent_mask[:, :, None])[:, None].expand(b, a, a, p)
+    return voxelize_batch(moved.reshape(b, a, a * p, 3), mmask.reshape(b, a, a * p), grid, dtype)

@@ -1,15 +1,20 @@
 """Detection task module: the predict path and the training step.
 
-Port of ``v2x_sim_tpu/train/det_module.py::DetModule`` without KD, MGDA,
-``use_vis`` or data parallelism:
+Port of ``v2x_sim_tpu/train/det_module.py::DetModule`` for every
+collaboration mode, with DiscoNet's KD, without MGDA, ``use_vis`` or data
+parallelism:
 
-  * ``predict``: voxelize the padded points, run the model, decode the
-    top-K candidates per agent, suppress them with rotated NMS;
+  * ``predict``: voxelize the padded points (merged into each agent's
+    frame for upperbound), run the model, decode the top-K candidates per
+    agent, suppress them with rotated NMS;
   * ``prepare_batch``: voxelize and assign sparse anchor targets once per
-    batch (the rotated-IoU kernels run here);
+    batch (the rotated-IoU kernels run here), plus the teacher's merged
+    occupancy when KD is on;
   * ``train_step``: forward in BatchNorm's training mode, focal and sparse
-    smooth-L1 losses normalized by the positive count, backward, optional
-    global-norm clipping, one Adam step.
+    smooth-L1 losses normalized by the positive count, plus
+    ``kd_weight`` times the MSE between the student's fused map and the
+    frozen teacher's (once teacher weights are loaded), backward,
+    optional global-norm clipping, one Adam step.
 
 The model runs in the plain layout, with targets in plain (H, W, K)
 anchor order; the JAX package's blocked heads and lazy regression decode
@@ -27,13 +32,17 @@ import torch
 from v2x_sim_tpu_torch import resolve_device
 from v2x_sim_tpu_torch.bridge import state_dict_from_flax
 from v2x_sim_tpu_torch.configs.config import Config
-from v2x_sim_tpu_torch.models.det.net import DetModel, DetOutput, check_mode
+from v2x_sim_tpu_torch.models.det.net import DetModel, DetOutput, TeacherModel, check_mode
 from v2x_sim_tpu_torch.ops.anchors import anchor_grid
 from v2x_sim_tpu_torch.ops.assign import SparseTargets, assign_targets_batched, labels_from_sparse_idx
 from v2x_sim_tpu_torch.ops.nms import NMSResult, batched_nms
 from v2x_sim_tpu_torch.ops.postprocess import decode_topk
-from v2x_sim_tpu_torch.ops.voxelize import voxelize_batch
-from v2x_sim_tpu_torch.utils.losses import smooth_l1_loss_sparse_sum, softmax_focal_loss_sum
+from v2x_sim_tpu_torch.ops.voxelize import merged_occupancy, voxelize_batch
+from v2x_sim_tpu_torch.utils.losses import (
+    kd_mse_loss_sum,
+    smooth_l1_loss_sparse_sum,
+    softmax_focal_loss_sum,
+)
 
 #: Batch keys the module reads: inputs, GT, and targets baked offline.
 BATCH_KEYS = (
@@ -47,8 +56,7 @@ class DetModule:
 
     Args:
       config: static geometry/anchor config.
-      mode: collaboration mode ("lowerbound" or "disco"; the JAX package's
-        other modes raise NotImplementedError).
+      mode: collaboration mode (models/det/net.py::MODES).
       compute_dtype: activation dtype. With bfloat16, activations run in
         bf16 from the encoder input on, parameters stay float32, and the
         decode and the losses run in float32.
@@ -58,6 +66,14 @@ class DetModule:
       grad_clip: clip gradients to this global norm before Adam, by optax's
         rule; 0 disables.
       width_mult: uniform scale of the STPN stage widths (1.0 = 32..512).
+      kd_weight: weight of the KD MSE term; > 0 builds the model with
+        ``kd`` and adds the teacher's input to ``prepare_batch``. The term
+        applies once ``load_teacher_flax_variables`` has given a teacher.
+      kd_reduce: "mean" divides the KD squared-error sum by its element
+        count; "pos" by the positive count, as the detection terms.
+      warp_flag, v2v_rounds, v2v_msg_norm: DetModel's.
+      mgda, use_vis: the JAX package's; not ported (ROADMAP.md queue 1
+        item 11), so True raises NotImplementedError.
     """
 
     def __init__(
@@ -69,17 +85,37 @@ class DetModule:
         learning_rate: float = 1e-3,
         grad_clip: float = 0.0,
         width_mult: float = 1.0,
+        kd_weight: float = 0.0,
+        kd_reduce: str = "mean",
+        warp_flag: bool = True,
+        v2v_rounds: int = 3,
+        v2v_msg_norm: bool = False,
+        mgda: bool = False,
+        use_vis: bool = False,
     ):
         check_mode(mode)
+        if kd_reduce not in ("mean", "pos"):
+            raise ValueError(f"kd_reduce must be 'mean' or 'pos', got {kd_reduce!r}")
+        for name, on in (("mgda", mgda), ("use_vis", use_vis)):
+            if on:
+                raise NotImplementedError(
+                    f"{name} is not ported yet: ROADMAP.md queue 1 item 11 (MGDA and visibility)")
         self.config = config
         self.mode = mode
+        self.width_mult = width_mult
+        self.kd_weight = kd_weight
+        self.kd_reduce = kd_reduce
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         # Activations arrive channels-last (permuted NHWC views), so the
         # conv weights take the same memory format.
-        self.model = DetModel(config, mode, width_mult).to(
-            self.device, memory_format=torch.channels_last)
+        self.model = DetModel(
+            config, mode, width_mult, warp_flag=warp_flag, v2v_rounds=v2v_rounds,
+            v2v_msg_norm=v2v_msg_norm, kd=kd_weight > 0.0,
+        ).to(self.device, memory_format=torch.channels_last)
         self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
+        #: The frozen early-fusion teacher, once its weights are loaded.
+        self.teacher: Optional[TeacherModel] = None
         self.anchors = torch.from_numpy(anchor_grid(config)).to(self.device)
         # 3x3 score peaks before top-K at <= 0.5 m voxels, where one
         # vehicle saturates many anchors; off at coarse grids.
@@ -93,6 +129,18 @@ class DetModule:
         sd = state_dict_from_flax(variables, self.mode)
         self.model.load_state_dict(sd, strict=True)
 
+    def load_teacher_flax_variables(self, variables: Mapping[str, Any]) -> None:
+        """Load the KD teacher from a flax tree of an upperbound model
+        (its weights stay frozen; it runs in BatchNorm's inference mode in
+        the student's parameter dtype)."""
+        if self.kd_weight <= 0.0:
+            raise ValueError("the teacher is used only with kd_weight > 0")
+        dtype = next(self.model.parameters()).dtype
+        teacher = TeacherModel(self.config, self.width_mult)
+        teacher.load_state_dict(state_dict_from_flax(variables, "upperbound"), strict=True)
+        self.teacher = teacher.to(self.device, dtype, memory_format=torch.channels_last).eval()
+        self.teacher.requires_grad_(False)
+
     def to_device(self, batch: Mapping[str, Any]) -> dict:
         """The batch entries the module reads, as tensors on this device."""
         return {
@@ -102,12 +150,21 @@ class DetModule:
         }
 
     def model_input(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """(B, A, H, W, D) occupancy in the compute dtype."""
+        """(B, A, H, W, D) occupancy in the compute dtype: ``occupancy`` as
+        given, else the points voxelized (merged for upperbound)."""
         if "occupancy" in batch:
             return batch["occupancy"].to(self.compute_dtype)
+        if self.mode == "upperbound":
+            return self.merged_occupancy(batch)
         return voxelize_batch(
             batch["points"], batch["point_mask"], self.config.grid, self.compute_dtype
         )
+
+    def merged_occupancy(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Early-fusion occupancy of a device batch (ops/voxelize.py)."""
+        return merged_occupancy(batch["points"], batch["point_mask"], batch["trans"],
+                                batch["agent_mask"].to(torch.bool), self.config.grid,
+                                self.compute_dtype)
 
     @torch.inference_mode()
     def predict(
@@ -149,10 +206,14 @@ class DetModule:
     @torch.no_grad()
     def prepare_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """Per-batch preprocessing on the device: ``occupancy``, ``trans``,
-        ``agent_mask`` and the training targets of :meth:`targets`."""
+        ``agent_mask``, the training targets of :meth:`targets`, and with
+        KD the teacher's merged ``teacher_occupancy``."""
         bt = self.to_device(batch)
-        return {"occupancy": self.model_input(bt), "trans": bt["trans"],
-                "agent_mask": bt["agent_mask"], **self.targets(bt)}
+        out = {"occupancy": self.model_input(bt), "trans": bt["trans"],
+               "agent_mask": bt["agent_mask"], **self.targets(bt)}
+        if self.kd_weight > 0.0:
+            out["teacher_occupancy"] = self.merged_occupancy(bt)
+        return out
 
     @torch.no_grad()
     def targets(self, bt: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -187,11 +248,14 @@ class DetModule:
         return out
 
     def loss_from_output(
-        self, out: DetOutput, prepared: Mapping[str, torch.Tensor]
+        self, out: DetOutput, prepared: Mapping[str, torch.Tensor],
+        teacher_feat: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Focal + sparse smooth-L1 loss of a forward's output against the
         prepared targets, with padded agents masked out of both terms, each
-        normalized by max(positive count, 1)."""
+        normalized by max(positive count, 1); with ``teacher_feat``, plus
+        ``kd_weight`` times the KD MSE of ``out.fused_feat`` against it
+        (padded agents included, as in the JAX package)."""
         am = prepared["agent_mask"].to(torch.bool)
         b, a = am.shape
         labels = torch.where(am[:, :, None], prepared["labels"].reshape(b, a, -1), -1)
@@ -204,7 +268,24 @@ class DetModule:
         denom = num_pos.clamp(min=1.0)
         cls_loss, loc_loss = cls_sum / denom, loc_sum / denom
         loss = cls_loss + loc_loss
-        return loss, {"cls_loss": cls_loss, "loc_loss": loc_loss, "loss": loss}
+        metrics = {"cls_loss": cls_loss, "loc_loss": loc_loss}
+        if teacher_feat is not None:
+            kd_sum, kd_n = kd_mse_loss_sum(out.fused_feat, teacher_feat)
+            if self.kd_reduce == "pos":
+                kd_n = denom
+            kd = kd_sum / kd_n.clamp(min=1.0)
+            loss = loss + self.kd_weight * kd
+            metrics["kd_loss"] = kd
+        metrics["loss"] = loss
+        return loss, metrics
+
+    @torch.no_grad()
+    def teacher_features(self, prepared: Mapping[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        """The frozen teacher's fusion-layer map on ``teacher_occupancy``,
+        or None when KD is off or no teacher is loaded."""
+        if self.kd_weight <= 0.0 or self.teacher is None:
+            return None
+        return self.teacher.kd_target(prepared["teacher_occupancy"])
 
     def loss(
         self, prepared: Mapping[str, torch.Tensor], train: bool = True
@@ -213,7 +294,7 @@ class DetModule:
         the running stats) and the loss; returns (loss, metrics)."""
         am = prepared["agent_mask"].to(torch.bool)
         out = self.model(prepared["occupancy"], prepared["trans"], am, train=train)
-        return self.loss_from_output(out, prepared)
+        return self.loss_from_output(out, prepared, self.teacher_features(prepared))
 
     def train_step(self, prepared: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One optimization step on a prepared batch. Returns the metrics
