@@ -796,52 +796,15 @@ def phase_train_timing(device, cfg, variables, batch, card: str, periodic_ms: fl
     return out
 
 
-def _scene_candidates(module, scene) -> dict:
-    """One scene through `module`'s model and decode, on its device, moved
-    to the CPU: the logits, the K candidates' raw scores, the sorted NMS
-    candidates (boxes, scores, valid) and the gap between the K-th and
-    (K+1)-th ranked logit differences (the top-K cut)."""
+def _scene_logits(module, scene) -> "torch.Tensor":
+    """One scene's class logits through `module`'s model on its device,
+    moved to the CPU."""
     import torch
-
-    from v2x_sim_tpu_torch.ops.nms import sort_candidates
-    from v2x_sim_tpu_torch.ops.postprocess import _peak_filter, decode_topk
 
     with torch.inference_mode():
         bt = module.to_device(scene)
         am = bt["agent_mask"].to(torch.bool)
-        out = module.model(module.model_input(bt), bt["trans"], am)
-        boxes, scores, valid = decode_topk(out.cls_logits, out.reg, module.anchors, MAX_BOXES,
-                                           SCORE_THRESHOLD, am, peak_window=module.peak_window)
-        sb, ss, sv = sort_candidates(boxes[0], scores[0], valid[0])
-        diff = (out.cls_logits[..., 1] - out.cls_logits[..., 0])[0]
-        if module.peak_window:
-            diff = _peak_filter(diff, module.peak_window)
-        top = torch.topk(diff.reshape(diff.shape[0], -1), MAX_BOXES + 1, dim=-1).values
-    return {"logits": out.cls_logits.cpu(), "raw_scores": scores[0].cpu(), "boxes": sb.cpu(),
-            "scores": ss.cpu(), "valid": sv.cpu(), "cut_gap": (top[:, -2] - top[:, -1]).cpu()}
-
-
-def _near_problems(c: dict, eps_logit: float) -> "torch.Tensor":
-    """Per agent, whether a difference of `eps_logit` in the logits could
-    change its kept set: the top-K cut within eps_logit; a candidate's
-    score within eps_logit / 2 (the sigmoid's slope is at most 1/4, on
-    either side) of the score threshold; two neighbors in score order that
-    close and overlapping (a swap changes which suppresses which); or a
-    pair whose IoU lies within IOU_TOL of the NMS threshold."""
-    import torch
-
-    from v2x_sim_tpu_torch.ops import iou_sh
-
-    eps_score = eps_logit / 2
-    s, v = c["scores"], c["valid"]
-    iou = iou_sh.rotated_iou_matrix(c["boxes"], c["boxes"])
-    near = c["cut_gap"].abs() <= eps_logit
-    near |= ((c["raw_scores"] - SCORE_THRESHOLD).abs() <= eps_score).any(dim=1)
-    tie = ((s[:, :-1] - s[:, 1:]).abs() <= eps_score) & v[:, :-1] & v[:, 1:]
-    near |= (tie & (iou.diagonal(1, dim1=1, dim2=2) > NMS_IOU - IOU_TOL)).any(dim=1)
-    both = v[:, :, None] & v[:, None, :]
-    near |= (((iou - NMS_IOU).abs() <= IOU_TOL) & both).any(dim=(1, 2))
-    return near
+        return module.model(module.model_input(bt), bt["trans"], am).cls_logits.cpu()
 
 
 def _same_kept_set(boxes_a, scores_a, boxes_b, scores_b):
@@ -862,8 +825,7 @@ def _check_scene_on_cpu(module, cfg, variables, scene, got, mode: str, opts: dic
     """Predict one scene with the port on the CPU (same weights, fp32) and
     hold the card's result `got` (that scene's NMSResult) to it: logits
     within LOGIT_TOL; each agent's kept boxes the same set, scores within
-    SCORE_TOL, unless the measured logit difference could change that
-    agent's kept set (_near_problems, on the CPU's candidates)."""
+    SCORE_TOL."""
     import torch
 
     from v2x_sim_tpu_torch.ops.nms import NMSResult
@@ -874,32 +836,27 @@ def _check_scene_on_cpu(module, cfg, variables, scene, got, mode: str, opts: dic
     t0 = time.perf_counter()
     ref = cpu.predict(scene, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
     cpu_s = time.perf_counter() - t0
-    c_cpu, c_dev = _scene_candidates(cpu, scene), _scene_candidates(module, scene)
-    d_logit = float((c_cpu["logits"] - c_dev["logits"]).abs().max())
+    d_logit = float((_scene_logits(cpu, scene) - _scene_logits(module, scene)).abs().max())
     if not d_logit <= LOGIT_TOL:
         raise AssertionError(f"{mode}: logits card vs CPU differ by {d_logit} > {LOGIT_TOL}")
-    near = _near_problems(c_cpu, 2 * d_logit)
     dev = NMSResult(*(t[0].cpu() for t in got))
-    same, d_scores = [], 0.0
-    for a in range(near.numel()):
+    differ, d_scores = [], 0.0
+    for a in range(dev.valid.shape[0]):
         kd, kc = dev.valid[a], ref.valid[0, a]
         ok, ds = _same_kept_set(dev.boxes[a][kd], dev.scores[a][kd], ref.boxes[0, a][kc],
                                 ref.scores[0, a][kc])
-        same.append(ok)
-        if ok:
-            d_scores = max(d_scores, ds)
-    differ = ~torch.tensor(same)
-    if bool((differ & ~near).any()):
-        raise AssertionError(f"{mode}: kept boxes differ card vs CPU at agents "
-                             f"{torch.nonzero(differ & ~near).flatten().tolist()}, none near a "
-                             f"threshold (max |d logit| {d_logit:.2e})")
+        if not ok:
+            differ.append(a)
+        d_scores = max(d_scores, ds)
+    if differ:
+        raise AssertionError(f"{mode}: kept boxes differ card vs CPU at agents {differ} "
+                             f"(max |d logit| {d_logit:.2e})")
     if not d_scores <= SCORE_TOL:
         raise AssertionError(f"{mode}: kept scores card vs CPU differ by {d_scores}")
     return (f"scene 0 card vs CPU: max |d logit| {d_logit:.2e}; kept sets equal at "
-            f"{int((~differ).sum())}/{differ.numel()} agents, positions equal at "
-            f"{int((dev.valid == ref.valid[0]).all(dim=1).sum())} ({int(differ.sum())} differ; "
-            f"{int(near.sum())} agents lie within the logit difference of a threshold or tie), "
-            f"{int(ref.valid.sum())} kept on the CPU, max |d score| {d_scores:.2e} (CPU {cpu_s:.1f} s)")
+            f"{dev.valid.shape[0]}/{dev.valid.shape[0]} agents, positions equal at "
+            f"{int((dev.valid == ref.valid[0]).all(dim=1).sum())}, {int(ref.valid.sum())} kept "
+            f"on the CPU, max |d score| {d_scores:.2e} (CPU {cpu_s:.1f} s)")
 
 
 def _when2com_margin(module, batch) -> str:

@@ -115,6 +115,8 @@ MODULES = {
     "when2com": (lambda: JaxWhen2com(JGRID), lambda: When2comFusion(GRID, C)),
     "who2com": (lambda: JaxWhen2com(JGRID, argmax_mode=True),
                 lambda: When2comFusion(GRID, C, argmax_mode=True)),
+    "when2com_no_threshold": (lambda: JaxWhen2com(JGRID, threshold=False),
+                              lambda: When2comFusion(GRID, C, threshold=False)),
     "v2v": (lambda: JaxV2V(JGRID), lambda: V2VNetFusion(GRID, C)),
 }
 

@@ -66,16 +66,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["upperbound", "v2v", "when2com"])
 def test_unported_modes_name_their_roadmap_item(mode):
-    """Every collaboration mode is ported; what DetModule still lacks (MGDA,
-    use_vis) raises NotImplementedError naming its ROADMAP.md item, and an
-    unknown mode raises ValueError."""
+    """These modes construct as DetModel and DetModule, and an unknown mode
+    raises ValueError."""
     from v2x_sim_tpu_torch.configs.config import Config
     from v2x_sim_tpu_torch.models.det.net import DetModel
     from v2x_sim_tpu_torch.train.det_module import DetModule
 
     assert DetModel(Config(), mode).mode == mode
-    for option in ("mgda", "use_vis"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-            DetModule(Config(), mode, device="cpu", **{option: True})
+    assert DetModule(Config(), mode, device="cpu").mode == mode
     with pytest.raises(ValueError, match="unknown mode"):
         DetModel(Config(), mode + "_x")

@@ -83,18 +83,19 @@ def _perturb(variables, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _init_variables(mode, seed):
+def _init_variables(mode, seed, fusion_layer):
     occ, trans, mask = _inputs()
-    init = JaxDetModel(config=JCFG, mode=mode, s2d=False, **MODE_KW.get(mode, {})).init(
+    init = JaxDetModel(config=JCFG, mode=mode, s2d=False, fusion_layer=fusion_layer,
+                       **MODE_KW.get(mode, {})).init(
         jax.random.PRNGKey(seed), jnp.asarray(occ), jnp.asarray(trans), jnp.asarray(mask),
         train=False)
     return _perturb({"params": init["params"], "batch_stats": init["batch_stats"]}, seed)
 
 
-def _flax_variables(mode, seed=0):
-    """The perturbed JAX init of `mode` (one init per mode and seed; a
-    fresh top-level dict, so a test may add leaves)."""
-    v = _init_variables(mode, seed)
+def _flax_variables(mode, seed=0, fusion_layer=None):
+    """The perturbed JAX init of `mode` (one init per mode, seed and fusion
+    layer; a fresh top-level dict, so a test may add leaves)."""
+    v = _init_variables(mode, seed, fusion_layer)
     return {"params": dict(v["params"]), "batch_stats": v["batch_stats"]}
 
 
@@ -140,25 +141,30 @@ def test_eval_logits_match_jax(mode, s2d):
     np.testing.assert_allclose(got.reg.numpy(), np.asarray(want.reg), atol=ATOL)
 
 
-@pytest.mark.parametrize("mode", ["disco", "upperbound"])
-def test_kd_fused_feat_and_teacher_match_jax(mode):
+@pytest.mark.parametrize(
+    "mode,layer", [("disco", None), ("upperbound", None), ("disco", 2), ("upperbound", 2)],
+    ids=["disco", "upperbound", "disco-layer2", "upperbound-layer2"])
+def test_kd_fused_feat_and_teacher_match_jax(mode, layer):
     """kd=True's fused_feat (after fusion for disco; the encoder map for
     upperbound), and TeacherModel loading an upperbound tree: all its
-    outputs, and kd_target, which stops the encoder at the fusion layer."""
-    variables = _flax_variables(mode)
+    outputs, and kd_target, which stops the encoder at the fusion layer;
+    at the config's fusion layer (3) and at layer 2."""
+    variables = _flax_variables(mode, fusion_layer=layer)
     occ, trans, mask = _inputs(seed=2)
-    want = JaxDetModel(config=JCFG, mode=mode, s2d=False, kd=True).apply(
+    want = JaxDetModel(config=JCFG, mode=mode, s2d=False, kd=True, fusion_layer=layer).apply(
         variables, jnp.asarray(occ), jnp.asarray(trans), jnp.asarray(mask), train=False)
-    model = DetModel(CFG, mode, kd=True).eval()
+    model = DetModel(CFG, mode, fusion_layer=layer, kd=True).eval()
     model.load_state_dict(state_dict_from_flax(variables, mode), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(occ), torch.from_numpy(trans), torch.from_numpy(mask))
-    assert got.fused_feat.shape == (1, 6, 8, 8, 256)
+    assert got.fused_feat.shape == ((1, 6, 8, 8, 256) if layer is None else (1, 6, 16, 16, 128))
     np.testing.assert_allclose(got.fused_feat.numpy(), np.asarray(want.fused_feat), atol=ATOL)
+    np.testing.assert_allclose(got.cls_logits.numpy(), np.asarray(want.cls_logits), atol=ATOL)
     if mode != "upperbound":
         return
-    t_want = JaxTeacherModel(config=JCFG).apply(variables, jnp.asarray(occ), train=False)
-    teacher = TeacherModel(CFG).eval()
+    t_want = JaxTeacherModel(config=JCFG, fusion_layer=layer).apply(
+        variables, jnp.asarray(occ), train=False)
+    teacher = TeacherModel(CFG, fusion_layer=layer).eval()
     teacher.load_state_dict(state_dict_from_flax(variables, "upperbound"), strict=True)
     with torch.no_grad():
         t_got = teacher(torch.from_numpy(occ))

@@ -72,8 +72,6 @@ class DetModule:
       kd_reduce: "mean" divides the KD squared-error sum by its element
         count; "pos" by the positive count, as the detection terms.
       warp_flag, v2v_rounds, v2v_msg_norm: DetModel's.
-      mgda, use_vis: the JAX package's; not ported (ROADMAP.md queue 1
-        item 11), so True raises NotImplementedError.
     """
 
     def __init__(
@@ -90,16 +88,10 @@ class DetModule:
         warp_flag: bool = True,
         v2v_rounds: int = 3,
         v2v_msg_norm: bool = False,
-        mgda: bool = False,
-        use_vis: bool = False,
     ):
         check_mode(mode)
         if kd_reduce not in ("mean", "pos"):
             raise ValueError(f"kd_reduce must be 'mean' or 'pos', got {kd_reduce!r}")
-        for name, on in (("mgda", mgda), ("use_vis", use_vis)):
-            if on:
-                raise NotImplementedError(
-                    f"{name} is not ported yet: ROADMAP.md queue 1 item 11 (MGDA and visibility)")
         self.config = config
         self.mode = mode
         self.width_mult = width_mult
