@@ -37,12 +37,11 @@ Phases, each reported on its own line; any failure exits non-zero:
   7. Every other collaboration mode (upperbound, sum, mean, max, cat,
      agent, when2com, who2com, v2v with 3 rounds) at the same geometry and
      B, random weights through the bridge: predict, where the matrix
-     kernel must launch; scene 0 against the port on the CPU (logits
-     within 1e-3; each agent's kept boxes the same set with scores within
-     1e-4, unless the measured logit difference reaches one of its
-     thresholds or ties, which is counted); fp32 and bf16 timing with
-     the fusion stage's events and peak memory; one bf16 train step for
-     cat, agent, when2com and v2v (finite loss and grads, peak memory).
+     kernel must launch; scene 0 against the port on the CPU, strictly at
+     every agent (logits within 1e-3; each agent's kept boxes the same set,
+     in any order, with scores within 1e-4); fp32 and bf16 timing with the
+     fusion stage's events and peak memory; one bf16 train step for cat,
+     agent, when2com and v2v (finite loss and grads, peak memory).
   8. Late fusion over disco's predict output with config.max_boxes (512)
      candidates per agent: the matrix kernel on the merged candidates
      (96 x 512 x 512) against its plain version over every pair (beyond
@@ -56,6 +55,22 @@ Phases, each reported on its own line; any failure exits non-zero:
      the CPU, the loss falling over 8 fp32 steps, then fp32 and bf16
      timing with per-stage events (the teacher's forward among them) and
      peak memory.
+ 10. The detection workflow at full width, each tool's main(argv) run in
+     this process in a temporary directory: create_data_det --targets 1
+     bakes 2 x 16 synthetic frames (the periodic kernel launches exactly
+     twice a frame, the aligned pairs at least once; frame 0's targets
+     equal the CPU's bake of it; the frame's assignment kernels timed and
+     held against the plain version); train_det trains 2 epochs of 2
+     batches from the cache (no assignment launches; epoch_0, epoch_1;
+     finite losses) and resumes at epoch 2; train_det on 6 batches of live
+     targets, assigned in the prefetch thread on its own stream (step 1's
+     loss against the same batch prepared on the main stream; the loop's
+     rate per step); test_det --resume auto, plain and with late fusion
+     (the matrix kernel launches for NMS and for 2 thresholds x 6 agents
+     of mAP; the mAP equals the CPU's over the same detections within
+     1e-6, and over the evaluation's GT jittered); the matrix kernel at
+     mAP's operands (F x 512 x 32) against its plain version, where mAP
+     reads it, and against its bound.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -66,8 +81,9 @@ of csrc/rotated_iou.cu is built too and timed against this one in turns
 on the main path's operands (lines tagged [A/B]).
 
 Each kernel wrapper's launch count is set to 0 before each path (predict,
-training, every mode's predict, late fusion, KD training) and read after
-it. "[time]" lines give each phase's seconds.
+training, every mode's predict, late fusion, KD training, and each tool
+run of the workflow) and read after it. "[time]" lines give each phase's
+seconds.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -119,6 +135,11 @@ OTHER_MODES = ("upperbound", "sum", "mean", "max", "cat", "agent", "when2com", "
 TRAIN_MODES = ("cat", "agent", "when2com", "v2v")
 KD_WEIGHT = 1e5  # the JAX training tool's default --kd_weight
 CHUNK = 1 << 20  # pairs per chunk of the plain version in the full-size periodic check
+#: Phase 10's workflow: frames baked (2 training batches of BATCH), and
+#: evaluation batches.
+WORKFLOW_SCENES, WORKFLOW_FRAMES = 2, 16
+WORKFLOW_EVAL_BATCHES = 2
+WORKFLOW_LIVE_BATCHES = 6  # batches of the training run on live targets
 PERIOD = 4099  # a prime period for the random periodic check
 
 
@@ -649,12 +670,12 @@ def _check_zeros(got, ref, what: str) -> int:
     return int(differ.sum())
 
 
-def phase_assign_kernels(device, cfg, batch, card: str, base=None) -> dict:
-    """The assignment's kernels on the training batch's own operands: the
-    periodic entry on both nearest-GT candidates (c1, c2) at full size and
-    the aligned-pairs entry on the forced-anchor test, each against the
-    plain version over every pair (in chunks), with its cull counts, and
-    against the baseline build if there is one."""
+def phase_assign_kernels(device, cfg, batch, card: str, base=None, tag: str = "[5]") -> dict:
+    """The assignment's kernels on a batch's own operands: the periodic
+    entry on both nearest-GT candidates (c1, c2) at full size and the
+    aligned-pairs entry on the forced-anchor test, each against the plain
+    version over every pair (in chunks), with its cull counts, and against
+    the baseline build if there is one."""
     import torch
 
     from v2x_sim_tpu_torch.ops import iou_sh
@@ -694,7 +715,7 @@ def phase_assign_kernels(device, cfg, batch, card: str, base=None) -> dict:
             raise AssertionError(f"periodic entry on {name}: max |kernel - plain| = {err} > {IOU_TOL}")
         soft = _check_zeros(got, ref, f"periodic entry on {name}")
         bound_ms, bound_by = cull.periodic_bound(n)
-        log(f"[5] rotated_iou_pairs_periodic {b} x {n} = {nb} pairs (candidate {name}): "
+        log(f"{tag} rotated_iou_pairs_periodic {b} x {n} = {nb} pairs (candidate {name}): "
             f"max_abs_err={err:.3e} over every pair (plain version in {-(-nb // CHUNK)} chunks of "
             f"{CHUNK}); exact zeros equal but at {soft} pairs with plain IoU < 1e-6; share with IoU > 0 "
             f"{float((ref > 0).float().mean()):.4f}; {cull}; kernel {ms:.4f} ms, plain "
@@ -718,7 +739,7 @@ def phase_assign_kernels(device, cfg, batch, card: str, base=None) -> dict:
     ms = time_ms(lambda: iou_cu.rotated_iou_pairs_soa(gt_op, own_op), iters=50)
     plain_ms = time_ms(lambda: iou_sh.rotated_iou(gt_op.T, own_op.T), iters=10)
     bound_ms, bound_by = cull.pairs_bound()
-    log(f"[5] rotated_iou_pairs {pairs} pairs (the batch's forced-anchor test, padded GT "
+    log(f"{tag} rotated_iou_pairs {pairs} pairs (the batch's forced-anchor test, padded GT "
         f"included): max_abs_err={err:.3e}; {cull}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
     out["pairs"] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1173,6 +1194,283 @@ def phase_kd(device, cfg, variables, batch, card: str, seed: int = 30) -> dict:
     return out
 
 
+def _run_tool(tool, argv, tag: str = "[10]"):
+    """`tool.main(argv)` in this process, its printout logged under `tag`
+    (indented, so that no line of it reads as this script's result)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = tool.main(argv)
+    secs = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"{tag}   | {line}")
+    return result, secs
+
+
+def _load_npz(path: str) -> dict:
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _launches() -> dict:
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+
+    return {"matrix": iou_cu.rotated_iou_matrix.launches,
+            "pairs": iou_cu.rotated_iou_pairs_soa.launches,
+            "periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches}
+
+
+def _check_baked_frame(card_path: str, cpu_path: str) -> str:
+    """Frame 0's targets baked on the card against the same frame baked on
+    the CPU: index lists, cells and weights equal, regression targets
+    within REG_TOL."""
+    with np.load(card_path) as card, np.load(cpu_path) as cpu:
+        for key in ("tgt_pos_idx", "tgt_ign_idx", "tgt_cells", "tgt_wts", "tgt_meta"):
+            if not np.array_equal(card[key], cpu[key]):
+                raise AssertionError(f"baked frame 0: {key} differs card vs CPU")
+        err_reg = float(np.abs(card["tgt_reg"] - cpu["tgt_reg"]).max())
+        if not err_reg <= REG_TOL:
+            raise AssertionError(f"baked frame 0: regression targets card vs CPU differ by {err_reg}")
+        n = int(cpu["tgt_meta"][0] * cpu["tgt_meta"][1] * cpu["tgt_meta"][2])
+        pos = int((cpu["tgt_pos_idx"] < n).sum())
+        ign = int((cpu["tgt_ign_idx"] < n).sum())
+        return (f"frame 0 card vs CPU: {pos} positive and {ign} ignored anchors listed, index lists, "
+                f"cells and weights equal, max |d reg| {err_reg:.2e} (tol {REG_TOL})")
+
+
+def phase_workflow(device, cfg, card: str, train_rates: dict) -> dict:
+    """The detection workflow at full width through the tools' main(argv),
+    in a temporary directory: bake a cache with targets, train from it with
+    checkpoints, resume, train once more on live targets, evaluate with and
+    without late fusion; the kernels at the operands this workflow gives
+    them (a frame's assignment, mAP's detections x GT)."""
+    import tempfile
+
+    import torch
+
+    from v2x_sim_tpu_torch.ops import iou_sh
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.tools import common, create_data_det, test_det, train_det
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+    from v2x_sim_tpu_torch.utils.mean_ap import eval_map_agents
+
+    out = {"launches": {"matrix": 0, "pairs": 0, "periodic": 0}}
+
+    def add_launches(counts):
+        for key, v in counts.items():
+            out["launches"][key] += v
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cache, run = os.path.join(tmp, "cache"), os.path.join(tmp, "run")
+        # (a) Bake: 2 scenes x 16 frames with targets, on the card.
+        iou_cu.reset_launches()
+        frames, bake_s = _run_tool(create_data_det, [
+            "--root", "synthetic", "--savepath", cache, "--scenes", str(WORKFLOW_SCENES),
+            "--frames", str(WORKFLOW_FRAMES), "--targets", "1"])
+        torch.cuda.synchronize()
+        bake = _launches()
+        add_launches(bake)
+        if bake["periodic"] != 2 * frames or bake["pairs"] < frames:
+            raise AssertionError(f"baking {frames} frames launched {bake}: want periodic "
+                                 f"{2 * frames}, pairs >= {frames}")
+        _, cpu_s = _run_tool(create_data_det, [
+            "--root", "synthetic", "--savepath", os.path.join(tmp, "cpu"), "--scenes", "1",
+            "--frames", "1", "--targets", "1", "--cpu"])
+        name = "scene0000_frame000.npz"
+        same = _check_baked_frame(os.path.join(cache, "train", name), os.path.join(tmp, "cpu", "train", name))
+        log(f"[10] create_data_det --targets 1: {frames} frames in {bake_s:.2f} s "
+            f"({bake_s / frames:.3f} s a frame, host clock: generate, assign, write), launches "
+            f"{bake} (periodic {bake['periodic'] // frames} a frame); {same}; the CPU baked it in "
+            f"{cpu_s:.1f} s")
+        with np.load(os.path.join(cache, "train", name)) as f:
+            frame = {"gt_boxes": f["gt_boxes"][None], "gt_mask": f["gt_mask"][None]}
+        out["bake"] = {"s_per_frame": bake_s / frames,
+                       **phase_assign_kernels(device, cfg, frame, card, tag="[10]")}
+
+        # (b) Train from the baked targets, with checkpoints; then resume.
+        train_args = ["--data", os.path.join(cache, "train"), "--com", "disco", "--batch",
+                      str(BATCH), "--batches_per_epoch", "2", "--logpath", run]
+        iou_cu.reset_launches()
+        first, _ = _run_tool(train_det, train_args + ["--nepoch", "2"])
+        torch.cuda.synchronize()
+        trained = _launches()
+        add_launches(trained)
+        if trained["periodic"] or trained["pairs"]:
+            raise AssertionError(f"training from baked targets launched the assignment: {trained}")
+        for epoch in (0, 1):
+            if not os.path.exists(os.path.join(run, f"epoch_{epoch}")):
+                raise AssertionError(f"train_det wrote no epoch_{epoch} checkpoint")
+        if not (first.step == 4 and np.isfinite(list(first.metrics.values())).all()):
+            raise AssertionError(f"train_det: step {first.step}, metrics {first.metrics}")
+        iou_cu.reset_launches()
+        resumed, _ = _run_tool(train_det, train_args + ["--nepoch", "3", "--resume", "auto"])
+        torch.cuda.synchronize()
+        add_launches(_launches())
+        if (resumed.start_epoch, resumed.start_step, resumed.step) != (2, 4, 6):
+            raise AssertionError(f"resume started at epoch {resumed.start_epoch}, step "
+                                 f"{resumed.start_step}, ended at {resumed.step}: want 2, 4, 6")
+        rates = first.epoch_scenes_per_sec + resumed.epoch_scenes_per_sec
+        t0 = time.perf_counter()
+        next(common.make_batches(train_det.parse_args(train_args), cfg, num_batches=1))
+        read_s = time.perf_counter() - t0
+        fp32 = train_rates["fp32"]
+        log(f"[10] train_det from the cache at B={BATCH}: launches {trained} (targets baked), "
+            f"epoch_0 and epoch_1 written, loss {first.metrics['loss']:.4f}; resume --auto started "
+            f"at epoch {resumed.start_epoch}, step {resumed.start_step}; loop scenes/s per epoch "
+            + " ".join(f"{r:.2f}" for r in rates)
+            + f" (2 steps an epoch, the first with the module's first step; phase 6 fp32: "
+            f"{fp32['step_scenes_per_s']:.2f} step only, {fp32['e2e_scenes_per_s']:.2f} prepare + "
+            f"step); one batch of {BATCH} frames takes {read_s:.3f} s to read from the cache "
+            f"[{card}]")
+        out["train"] = {"epoch_scenes_per_s": rates}
+
+        # (b') Train on live targets: the assignment runs in the prefetch
+        # thread, on its stream, overlapping the steps; metrics read every
+        # step. Step 1's loss against the same batch prepared and stepped
+        # on this thread's stream.
+        live_run = os.path.join(tmp, "live")
+        live_args = ["--com", "disco", "--batch", str(BATCH), "--batches_per_epoch",
+                     str(WORKFLOW_LIVE_BATCHES), "--nepoch", "1", "--log_every", "1",
+                     "--logpath", live_run]
+        iou_cu.reset_launches()
+        live, _ = _run_tool(train_det, live_args)
+        torch.cuda.synchronize()
+        live_launches = _launches()
+        add_launches(live_launches)
+        if (live_launches["periodic"] != 2 * WORKFLOW_LIVE_BATCHES
+                or live_launches["pairs"] < WORKFLOW_LIVE_BATCHES):
+            raise AssertionError(f"{WORKFLOW_LIVE_BATCHES} live batches launched {live_launches}: "
+                                 f"want periodic {2 * WORKFLOW_LIVE_BATCHES}, pairs >= "
+                                 f"{WORKFLOW_LIVE_BATCHES}")
+        with open(os.path.join(live_run, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        step1 = records[0]
+        step_rates = [r["scenes_per_sec"] for r in records if "scenes_per_sec" in r]
+        ref = DetModule(cfg, "disco", torch.float32, device=device)
+        ref.init_weights(0)
+        args = train_det.parse_args(live_args)
+        t0 = time.perf_counter()
+        raw = next(common.make_batches(args, cfg, num_batches=1))
+        gen_s = time.perf_counter() - t0
+        loss = float(ref.train_step(ref.prepare_batch(raw))["loss"])
+        rel = abs(step1["loss"] - loss) / abs(loss)
+        if not (step1["step"] == 1 and rel <= LOSS_RTOL):
+            raise AssertionError(f"live train_det step 1 loss {step1['loss']} vs {loss} on this "
+                                 f"thread's stream: rel {rel} > {LOSS_RTOL}")
+        log(f"[10] train_det on live targets, {WORKFLOW_LIVE_BATCHES} batches: launches "
+            f"{live_launches} in the prefetch thread; step 1 loss {step1['loss']:.6f} vs {loss:.6f} "
+            f"prepared and stepped on the main stream (rel {rel:.2e}, tol {LOSS_RTOL}); loop "
+            f"{live.epoch_scenes_per_sec[0]:.2f} scenes/s over the epoch, steps 2.. "
+            + " ".join(f"{r:.2f}" for r in step_rates)
+            + f" (host clock between steps, each reading its metrics); one batch of {BATCH} "
+            f"synthetic scenes takes {gen_s:.3f} s to generate on the host [{card}]")
+        out["live"] = {"epoch_scenes_per_s": live.epoch_scenes_per_sec[0], "step_rates": step_rates}
+        del ref, raw
+        torch.cuda.empty_cache()
+
+        # (c) Evaluate the newest checkpoint, then with late fusion.
+        out["eval"] = {}
+        for late in (False, True):
+            dets = os.path.join(tmp, "dets_late" if late else "dets")
+            argv = ["--com", "disco", "--resume", "auto", "--logpath", run, "--batch", str(BATCH),
+                    "--num_batches", str(WORKFLOW_EVAL_BATCHES), "--save_dets", dets]
+            iou_cu.reset_launches()
+            ev, secs = _run_tool(test_det, argv + (["--late_fusion"] if late else []))
+            torch.cuda.synchronize()
+            got = _launches()
+            add_launches(got)
+            saved = [_load_npz(os.path.join(dets, f"dets_{i:05d}.npz"))
+                     for i in range(WORKFLOW_EVAL_BATCHES)]
+            cat = {k: np.concatenate([s[k] for s in saved]) for k in saved[0]}
+            if not late:
+                plain_dets = cat
+            agents = int(cat["agent_mask"].any(axis=0).sum())
+            want = WORKFLOW_EVAL_BATCHES * (2 if late else 1) + 2 * agents
+            if got["matrix"] != want or got["periodic"] or got["pairs"]:
+                raise AssertionError(f"test_det{' --late_fusion' if late else ''} launched {got}: "
+                                     f"want matrix {want} (NMS, late fusion, 2 thresholds x "
+                                     f"{agents} agents)")
+            ref_map = eval_map_agents(cat["boxes"], cat["scores"], cat["valid"], cat["gt_boxes"],
+                                      cat["gt_mask"], cat["agent_mask"], device="cpu")
+            d_map = max(abs(ev.metrics[k] - ref_map[k]) for k in ref_map)
+            if ev.metrics.keys() != ref_map.keys() or not d_map <= 1e-6:
+                raise AssertionError(f"test_det's mAP on the card differs from the CPU's over the "
+                                     f"same detections by {d_map}")
+            label = "late fusion" if late else "plain"
+            log(f"[10] test_det ({label}) at B={BATCH} x {WORKFLOW_EVAL_BATCHES}: launches {got}; "
+                f"mAP@0.5 {ev.metrics['mAP@0.5']:.4f}, mAP@0.7 {ev.metrics['mAP@0.7']:.4f}, "
+                f"{int(cat['valid'].sum())} detections kept; card vs CPU over the same detections: "
+                f"max |d mAP| {d_map:.1e} over {len(ref_map)} keys; {secs:.2f} s (predict "
+                f"{ev.predict_s:.2f} s, mAP {ev.map_s:.2f} s; host clock) [{card}]")
+            out["eval"][label] = {"s": secs, "predict_s": ev.predict_s, "map_s": ev.map_s}
+
+        # The evaluator where detections do match: the evaluation's real
+        # GT boxes jittered, plus as many random boxes; card against CPU.
+        rng = np.random.default_rng(0)
+        gt_boxes = plain_dets["gt_boxes"]
+        noise = np.concatenate([rng.normal(0, 0.3, gt_boxes.shape[:-1] + (2,)),
+                                rng.normal(0, 0.05, gt_boxes.shape[:-1] + (3,))], axis=-1)
+        spread = rng.uniform(-1, 1, gt_boxes.shape) * np.array([32, 32, 0, 0, np.pi])
+        extra = spread + np.array([0, 0, 4.5, 1.9, 0])
+        jittered = np.concatenate([gt_boxes + noise, extra], axis=2).astype(np.float32)
+        scores = rng.random(jittered.shape[:-1]).astype(np.float32)
+        real = np.concatenate([plain_dets["gt_mask"], np.ones_like(plain_dets["gt_mask"])], axis=2)
+        valid = (rng.random(jittered.shape[:-1]) < 0.9) & real
+        args = (jittered, scores, valid, gt_boxes, plain_dets["gt_mask"], plain_dets["agent_mask"])
+        iou_cu.reset_launches()
+        on_card = eval_map_agents(*args, device=device)
+        torch.cuda.synchronize()
+        add_launches(_launches())
+        on_cpu = eval_map_agents(*args, device="cpu")
+        d_map = max(abs(on_card[k] - on_cpu[k]) for k in on_cpu)
+        if not (d_map <= 1e-6 and on_cpu["mAP@0.5"] > 0.1):
+            raise AssertionError(f"eval_map_agents on jittered GT: card {on_card} vs CPU {on_cpu}")
+        log(f"[10] eval_map_agents on the evaluation's GT jittered ({jittered.shape[2]} detections a "
+            f"frame and agent): card mAP@0.5 {on_card['mAP@0.5']:.6f}, mAP@0.7 "
+            f"{on_card['mAP@0.7']:.6f}; card vs CPU max |d mAP| {d_map:.1e}")
+
+        # K1's matrix entry at mAP's operands: agent 0's detections x GT.
+        # The evaluator reads the pairs of valid detections and real GT. A
+        # padded GT box has zero size, and the IoU of a zero-size box with
+        # any box is that box's area over the 1e-8 epsilon in the JAX
+        # package too (the clip keeps the whole box): not compared.
+        keep = plain_dets["agent_mask"][:, 0]
+        take = lambda a: torch.from_numpy(np.ascontiguousarray(a[keep, 0])).to(device)
+        det, gt = take(plain_dets["boxes"]), take(plain_dets["gt_boxes"])
+        read = take(plain_dets["valid"])[:, :, None] & take(plain_dets["gt_mask"])[:, None, :]
+        g, n, m = det.shape[0], det.shape[1], gt.shape[1]
+        got = iou_cu.rotated_iou_matrix(det, gt)
+        plain = iou_sh.rotated_iou_matrix(det, gt)
+        err = float((got - plain).abs()[read].max())
+        if not err <= IOU_TOL:
+            raise AssertionError(f"mAP matrix: max |kernel - plain| = {err} > {IOU_TOL} over the "
+                                 f"pairs mAP reads")
+        soft = _check_zeros(got[read], plain[read], "mAP matrix")
+        apart = ((got - plain).abs() > IOU_TOL) & ~read
+        unread = int(apart.sum())
+        if unread:  # one of them, for the record
+            i, j, k = (int(x) for x in torch.nonzero(apart)[0])
+            unread = (f"{unread}, e.g. detection {det[i, j].tolist()} x GT {gt[i, k].tolist()}: "
+                      f"kernel {float(got[i, j, k]):.6g}, plain {float(plain[i, j, k]):.6g}")
+        work = IouWork()
+        work.add(det[:, :, None], gt[:, None])
+        ms = time_ms(lambda: iou_cu.rotated_iou_matrix(det, gt), iters=50)
+        plain_ms = time_ms(lambda: iou_sh.rotated_iou_matrix(det, gt), iters=10)
+        bound_ms, bound_by = work.matrix_bound(g, n, m)
+        log(f"[10] rotated_iou_matrix {g}x{n}x{m} on mAP's operands (agent 0's detections x "
+            f"GT): max_abs_err={err:.3e} over the {int(read.sum())} pairs of valid detections and "
+            f"real GT that mAP reads, exact zeros equal there but at {soft} pairs with plain IoU < "
+            f"1e-6 (of the other pairs, {unread} differ beyond {IOU_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}), share {bound_ms / ms:.1%}; {work} [{card}]")
+        out["map_matrix"] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "shape": (g, n, m)}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -1232,25 +1530,28 @@ def main() -> int:
     assign = timed("assign kernels", phase_assign_kernels, device, cfg, train["batch"], card, base)
     per = {key: float(np.mean([c[key] for c in assign["periodic"]]))
            for key in ("ms", "plain_ms", "bound_ms")}
-    timed("train timing", phase_train_timing, device, cfg, variables, train["batch"], card,
-          per["ms"])
+    train_rates = timed("train timing", phase_train_timing, device, cfg, variables, train["batch"],
+                        card, per["ms"])
     timed("modes", phase_modes, device, cfg, predict_batch, card)
     late = timed("late fusion", phase_late_fusion, device, cfg, variables, predict_batch, card)
     timed("kd", phase_kd, device, cfg, variables, train["batch"], card)
+    flow = timed("workflow", phase_workflow, device, cfg, card, train_rates)
+    bake = flow["bake"]
     log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"
     # Times and bounds on the main path's own operands: predict's NMS
     # candidates; the training batch's forced-anchor test; the mean of the
-    # periodic entry's two launches (candidates c1 and c2). The matrix's
-    # launches and error include late fusion's (its time is on a [8] line).
+    # periodic entry's two launches (candidates c1 and c2). Launches and
+    # errors include late fusion's and the workflow's (phase 10), whose
+    # times are on the [8] and [10] lines.
     kernels = [{
         "name": "rotated_iou_matrix",
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
-        "launches": predict_launches + late["launches"],
-        "max_abs_err": max(k["err_mat"], nms["err"], late["err"]),
+        "launches": predict_launches + late["launches"] + flow["launches"]["matrix"],
+        "max_abs_err": max(k["err_mat"], nms["err"], late["err"], flow["map_matrix"]["err"]),
         "ms": nms["ms"],
         "plain_ms": nms["plain_ms"],
         "bound_ms": nms["bound_ms"],
@@ -1261,8 +1562,8 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
-        "launches": train["launches"]["pairs"],
-        "max_abs_err": max(k["err_pairs"], assign["pairs"]["err"]),
+        "launches": train["launches"]["pairs"] + flow["launches"]["pairs"],
+        "max_abs_err": max(k["err_pairs"], assign["pairs"]["err"], bake["pairs"]["err"]),
         "ms": assign["pairs"]["ms"],
         "plain_ms": assign["pairs"]["plain_ms"],
         "bound_ms": assign["pairs"]["bound_ms"],
@@ -1273,8 +1574,8 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:199",
-        "launches": train["launches"]["periodic"],
-        "max_abs_err": max([k["err_per"]] + [c["err"] for c in assign["periodic"]]),
+        "launches": train["launches"]["periodic"] + flow["launches"]["periodic"],
+        "max_abs_err": max([k["err_per"]] + [c["err"] for c in assign["periodic"] + bake["periodic"]]),
         "ms": per["ms"],
         "plain_ms": per["plain_ms"],
         "bound_ms": per["bound_ms"],

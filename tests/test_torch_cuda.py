@@ -204,3 +204,31 @@ def test_pairs_kernel_sparse_operands_on_card(cuda_device):
     torch.cuda.synchronize()
     assert float(iou_sh.culled(a, b).float().mean()) > 0.5
     _assert_matches_plain(got, iou_sh.rotated_iou(a, b), "sparse aligned pairs")
+
+
+@pytest.mark.gpu
+def test_device_prefetch_stages_on_a_side_stream(cuda_device):
+    """datasets/loader.py::device_prefetch on the card: host arrays go up
+    through pinned buffers, the stage (here the matrix kernel) runs on the
+    prefetch thread's own stream, and the consumer reads every batch
+    complete on its stream."""
+    from v2x_sim_tpu_torch.datasets.loader import device_prefetch
+
+    rng = np.random.default_rng(13)
+    host = [{"a": _random_boxes(rng, 2 * 300).reshape(2, 300, 5),
+             "b": _random_boxes(rng, 2 * 40).reshape(2, 40, 5)} for _ in range(5)]
+    consumer = torch.cuda.current_stream(cuda_device)
+    streams = []
+
+    def stage(batch):
+        streams.append(torch.cuda.current_stream(cuda_device))
+        assert batch["a"].is_cuda and batch["b"].is_cuda
+        return {"iou": iou_cu.rotated_iou_matrix(batch["a"], batch["b"])}
+
+    launches = iou_cu.rotated_iou_matrix.launches
+    got = [p["iou"].cpu() for p in device_prefetch(iter(host), stage, depth=2, device=cuda_device)]
+    assert iou_cu.rotated_iou_matrix.launches == launches + len(host)
+    assert len(streams) == len(host) and all(s != consumer for s in streams)
+    for g, h in zip(got, host):
+        want = iou_sh.rotated_iou_matrix(torch.from_numpy(h["a"]), torch.from_numpy(h["b"]))
+        _assert_matches_plain(g, want, "matrix staged on the prefetch stream")

@@ -1,0 +1,172 @@
+"""The port's detection workflow (``tools/{create_data_det,train_det,
+test_det}.py``) on the CPU at the 64x64x8 grid and width_mult 0.25.
+
+  * End to end: bake a cache with targets, train 2 epochs of 2 batches
+    with per-epoch checkpoints, resume from the newest, train KD against
+    a fresh or an upperbound teacher, and evaluate with ``--resume auto``
+    (plain and late fusion): the printed JSON has the JAX tool's keys and
+    values (its ``eval_map_agents`` on the detections ``--save_dets``
+    wrote, rounded as it prints them).
+  * The slice against JAX: the same flax variables through both
+    ``DetModule.predict`` s (exact top-K) and both ``eval_map_agents``
+    over 2 evaluation batches: the mAP dicts equal within 1e-6.
+  * Without a card every tool raises unless given ``--cpu``.
+
+``config.max_boxes`` is cut to 64 candidates for the tool runs: the plain
+IoU matrix of NMS and late fusion over 512 candidates a agent takes tens
+of CPU seconds.
+"""
+
+import dataclasses
+import importlib.util
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from v2x_sim_tpu.configs.config import Config as JaxConfig
+from v2x_sim_tpu.configs.config import GridConfig as JaxGrid
+from v2x_sim_tpu.train.det_module import DetModule as JaxDetModule
+from v2x_sim_tpu.train.det_module import TrainState as JaxTrainState
+from v2x_sim_tpu.utils.mean_ap import eval_map_agents as jax_eval_map_agents
+from v2x_sim_tpu_torch.bridge import random_flax_variables
+from v2x_sim_tpu_torch.models.det.net import DetModel
+from v2x_sim_tpu_torch.tools import common, create_data_det, test_det, train_det
+from v2x_sim_tpu_torch.train.checkpoint import latest_checkpoint
+from v2x_sim_tpu_torch.train.det_module import DetModule
+from v2x_sim_tpu_torch.utils.mean_ap import eval_map_agents
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
+
+MAX_BOXES = 64
+SMALL = ["--grid", "small", "--width_mult", "0.25", "--cpu"]
+
+
+@pytest.fixture
+def small_max_boxes(monkeypatch):
+    build = common.build_config
+    monkeypatch.setattr(test_det, "build_config",
+                        lambda args: dataclasses.replace(build(args), max_boxes=MAX_BOXES))
+
+
+@pytest.fixture(scope="module")
+def cache(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cache")
+    argv = ["--savepath", str(root), "--scenes", "1", "--frames", "4", "--grid", "small",
+            "--targets", "1", "--cpu"]
+    assert create_data_det.main(argv) == 4
+    return str(root / "train")
+
+
+def _train(cache, logpath, *extra):
+    return train_det.main(SMALL + ["--data", cache, "--com", "disco", "--batch", "2",
+                                   "--batches_per_epoch", "2", "--logpath", str(logpath),
+                                   *extra])
+
+
+def _printed_json(out: str) -> dict:
+    return json.loads(out[out.index("{"):])
+
+
+def test_train_resume_and_evaluate(cache, tmp_path, capsys, small_max_boxes):
+    run = _train(cache, tmp_path / "run", "--nepoch", "2")
+    assert (run.start_epoch, run.start_step, run.step) == (0, 0, 4)
+    assert np.isfinite(list(run.metrics.values())).all() and "loss" in run.metrics
+    assert latest_checkpoint(str(tmp_path / "run")) == str(tmp_path / "run" / "epoch_1")
+    assert (tmp_path / "run" / "epoch_0").exists() and (tmp_path / "run" / "metrics.jsonl").exists()
+
+    resumed = _train(cache, tmp_path / "run", "--nepoch", "3", "--resume", "auto")
+    assert (resumed.start_epoch, resumed.start_step, resumed.step) == (2, 4, 6)
+    assert len(resumed.epoch_scenes_per_sec) == 1
+    assert "resumed from" in (tmp_path / "run" / "log.txt").read_text()
+    capsys.readouterr()
+
+    for late in ([], ["--late_fusion"]):
+        dets = tmp_path / ("dets_late" if late else "dets")
+        ev = test_det.main(SMALL + ["--data", cache, "--com", "disco", "--batch", "2",
+                                    "--num_batches", "2", "--logpath", str(tmp_path / "run"),
+                                    "--resume", "auto", "--save_dets", str(dets), *late])
+        out = capsys.readouterr().out
+        assert "loaded checkpoint" in out and "epoch_2" in out
+        printed = _printed_json(out)
+        saved = [np.load(dets / f"dets_{i:05d}.npz") for i in range(2)]
+        assert set(saved[0].files) == {"boxes", "scores", "valid", "gt_boxes", "gt_mask",
+                                       "agent_mask"}
+        assert saved[0]["boxes"].shape == (2, 6, MAX_BOXES, 5)
+        cat = {k: np.concatenate([s[k] for s in saved]) for k in saved[0].files}
+        want = jax_eval_map_agents(cat["boxes"], cat["scores"], cat["valid"], cat["gt_boxes"],
+                                   cat["gt_mask"], cat["agent_mask"])
+        assert list(printed) == list(want)
+        assert printed == {k: round(v, 4) for k, v in want.items()}
+        assert all(abs(ev.metrics[k] - want[k]) <= 1e-6 for k in want)
+
+
+def test_kd_training_with_and_without_a_teacher(cache, tmp_path):
+    run = _train(cache, tmp_path / "fresh", "--nepoch", "1", "--kd_flag", "1")
+    assert "kd_loss" in run.metrics and np.isfinite(run.metrics["kd_loss"])
+    assert "no --teacher" in (tmp_path / "fresh" / "log.txt").read_text()
+    train_det.main(SMALL + ["--data", cache, "--com", "upperbound", "--batch", "2", "--nepoch", "1",
+                            "--batches_per_epoch", "1", "--logpath", str(tmp_path / "ub")])
+    teacher = latest_checkpoint(str(tmp_path / "ub"))
+    run = _train(cache, tmp_path / "kd", "--nepoch", "1", "--kd_flag", "1", "--teacher", teacher)
+    assert np.isfinite(run.metrics["kd_loss"])
+    assert f"loaded teacher from {teacher}" in (tmp_path / "kd" / "log.txt").read_text()
+
+
+def test_evaluation_without_a_checkpoint(cache, tmp_path, capsys, small_max_boxes):
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        test_det.main(SMALL + ["--data", cache, "--resume", "auto", "--logpath", str(tmp_path)])
+    ev = test_det.main(SMALL + ["--data", cache, "--num_batches", "1", "--visualize",
+                                str(tmp_path / "bev")])
+    assert "WARNING: no --resume given" in capsys.readouterr().out
+    assert set(ev.metrics) >= {"mAP@0.5", "mAP@0.7"}
+    if importlib.util.find_spec("matplotlib"):  # the rendering needs it, the evaluation not
+        assert (tmp_path / "bev" / "bev_0000.png").stat().st_size > 0
+
+
+@pytest.mark.parametrize("tool, argv", [
+    (create_data_det, ["--savepath", "unused"]),
+    (train_det, ["--nepoch", "1"]),
+    (test_det, ["--num_batches", "1"]),
+], ids=["create_data_det", "train_det", "test_det"])
+def test_tools_raise_without_a_card(tool, argv, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main(argv + ["--grid", "small"])
+    with pytest.raises(SystemExit):  # --use_vis waits for the visibility port
+        tool.main(argv + ["--use_vis", "1"])
+
+
+def test_slice_map_matches_jax():
+    """predict -> mAP, the port against the JAX package on the same
+    weights and evaluation batches (test_det's seeds, unshuffled)."""
+    args = train_det.parse_args(["--grid", "small", "--batch", "2", "--cpu"])
+    cfg = common.build_config(args)
+    jcfg = JaxConfig(grid=JaxGrid(voxel_size=common.SMALL_VOXEL))
+    variables = random_flax_variables(DetModel(cfg, "disco", 0.25), seed=2)
+    port = DetModule(cfg, "disco", device="cpu", width_mult=0.25)
+    port.load_flax_variables(variables)
+    jmod = JaxDetModule(jcfg, mode="disco", width_mult=0.25)
+    state = JaxTrainState(variables["params"], variables["batch_stats"], None,
+                          jnp.zeros((), jnp.int32))
+    got, want, gt = [], [], []
+    for raw in common.make_batches(args, cfg, split_seed=2**31, num_batches=2, shuffle=False):
+        batch = {k: raw[k] for k in ("points", "point_mask", "trans", "agent_mask")}
+        got.append([t.numpy() for t in port.predict(batch, MAX_BOXES, 0.1, 0.3)])
+        want.append([np.asarray(t) for t in jmod.predict(state, batch, MAX_BOXES, 0.1, 0.3, True)])
+        gt.append((raw["gt_boxes"], raw["gt_mask"], raw["agent_mask"]))
+    got = [np.concatenate(x) for x in zip(*got)]
+    want = [np.concatenate(x) for x in zip(*want)]
+    gt = [np.concatenate(x) for x in zip(*gt)]
+    np.testing.assert_array_equal(got[2], want[2])  # the same boxes kept
+    assert want[2].sum() > 20
+    m_got = eval_map_agents(*got, *gt, device="cpu")
+    m_want = jax_eval_map_agents(*want, *gt)
+    assert m_got.keys() == m_want.keys()
+    for key in m_want:
+        assert abs(m_got[key] - m_want[key]) <= 1e-6, (key, m_got[key], m_want[key])
+    assert m_want["mAP@0.5"] > 0.0

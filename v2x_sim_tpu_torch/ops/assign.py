@@ -1,8 +1,10 @@
 """GT -> anchor target assignment in the sparse training layout.
 
 Port of ``v2x_sim_tpu/ops/assign.py``: ``sparse_cell_capacity``,
-``SparseTargets``, ``assign_targets_batched(flat="sparse")`` and
-``labels_from_sparse_idx``. For a batch of padded GT sets:
+``target_fingerprint``, ``SparseTargets``,
+``assign_targets_batched(flat="sparse")``, and the sparse label wire
+format of baked caches (``labels_from_sparse_idx``, ``sparse_label_idx``,
+``label_counts``). For a batch of padded GT sets:
 
   1. every BEV cell keeps its two nearest GT centers as candidates;
   2. exact rotated IoU of every anchor against both candidates: the
@@ -16,17 +18,19 @@ Port of ``v2x_sim_tpu/ops/assign.py``: ``sparse_cell_capacity``,
 The GT lookups are gathers (the JAX package's one-hot einsums are a TPU
 matrix-unit layout), and the forced-anchor test is a scatter-max over the
 B*M forced anchors instead of a (B, n, M) comparison. The dense and
-``flat=True`` layouts and ``target_fingerprint`` are not ported
-(ROADMAP.md queue 1 item 7).
+``flat=True`` layouts are not ported (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from v2x_sim_tpu_torch.configs.config import Config
+from v2x_sim_tpu_torch.ops.anchors import anchor_grid
 from v2x_sim_tpu_torch.ops.boxes import encode_boxes
 from v2x_sim_tpu_torch.ops.cuda import iou_cu
 
@@ -44,6 +48,25 @@ def sparse_cell_capacity(config: Config) -> int:
     cap = _SPARSE_CELLS if float(config.grid.voxel_size[0]) >= 1.0 else _SPARSE_CELLS_FINE
     h, w = config.grid.bev_shape
     return min(cap, h * w)
+
+
+def target_fingerprint(config: Config) -> int:
+    """CRC32 of everything the meaning of baked targets depends on: the
+    anchor grid's float32 values, the assignment thresholds, the box-code
+    width, the positive-cell capacity and a semantics version (2.0).
+
+    Stored in a cache's ``tgt_meta`` (``tools/create_data_det.py
+    --targets 1``) and checked by ``tools/common.py::strip_stale_targets``.
+    The bytes are the JAX package's, so both packages accept each other's
+    caches."""
+    a = config.anchors
+    payload = (
+        np.ascontiguousarray(anchor_grid(config), dtype=np.float32).tobytes()
+        + np.asarray([a.pos_iou_threshold, a.neg_iou_threshold, float(a.box_code_size)],
+                     np.float32).tobytes()
+        + np.asarray([float(sparse_cell_capacity(config)), 2.0], np.float32).tobytes()
+    )
+    return zlib.crc32(payload) & 0x7FFFFFFF  # fits an int32
 
 
 class SparseTargets(NamedTuple):
@@ -223,3 +246,36 @@ def labels_from_sparse_idx(pos_idx: torch.Tensor, ign_idx: torch.Tensor, n: int)
     lab.scatter_(1, i, -1)
     lab.scatter_(1, p, 1)
     return lab[:, :n].reshape(lead + (n,))
+
+
+def _padded_flatnonzero(hit: torch.Tensor, cap: int) -> torch.Tensor:
+    """(rows, n) bool -> (rows, cap) int32: each row's first ``cap`` set
+    indices in order, padded with n (``jnp.flatnonzero(size=cap,
+    fill_value=n)`` per row)."""
+    rows, n = hit.shape
+    rank = hit.to(torch.int64).cumsum(dim=1) - 1
+    # Every index past the cap, and every unset one, lands in column `cap`.
+    dest = torch.where(hit & (rank < cap), rank, cap)
+    out = torch.full((rows, cap + 1), n, dtype=torch.int64, device=hit.device)
+    src = torch.arange(n, device=hit.device).expand(rows, n)
+    out.scatter_(1, dest, src)
+    return out[:, :cap].to(torch.int32)
+
+
+def sparse_label_idx(
+    labels: torch.Tensor, cap_pos: int, cap_ign: int
+) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """Compress dense (rows, n) labels to the padded index lists that
+    :func:`labels_from_sparse_idx` expands: (rows, cap_pos) positive and
+    (rows, cap_ign) ignore indices, int32, padded with n; plus the largest
+    positive and ignore counts of a row, so the caller can check that the
+    caps held (a longer row is truncated)."""
+    pos = _padded_flatnonzero(labels == 1, cap_pos)
+    ign = _padded_flatnonzero(labels == -1, cap_ign)
+    max_pos, max_ign = label_counts(labels)
+    return pos, ign, max_pos, max_ign
+
+
+def label_counts(labels: torch.Tensor) -> Tuple[int, int]:
+    """The largest positive and ignore counts of a row of (rows, n) labels."""
+    return int((labels == 1).sum(dim=-1).max()), int((labels == -1).sum(dim=-1).max())

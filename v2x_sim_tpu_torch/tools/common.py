@@ -1,0 +1,157 @@
+"""Shared CLI plumbing for the tools.
+
+Port of ``v2x_sim_tpu/tools/common.py``: the reference's flag surface
+(``--com``, ``--layer``, ``--rsu``, ``--warp_flag``, ``--resume``, ...),
+the config and mode they select, the baked-target staleness guard and the
+batch sources (synthetic scenes, a nuScenes-format root, an .npz cache).
+
+Every tool runs on the CUDA card unless ``--cpu`` is given; without a card
+and without ``--cpu`` it raises. ``--bf16`` selects bf16 activations; the
+tools run with TF32 off in cuDNN and in matrix products, so that fp32
+means fp32. (``--use_vis`` waits for the visibility port, ROADMAP.md
+queue 1 item 11.)
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import os
+from typing import Iterator, Tuple
+
+import numpy as np
+import torch
+
+from v2x_sim_tpu_torch import resolve_device
+from v2x_sim_tpu_torch.configs.config import Config, GridConfig
+from v2x_sim_tpu_torch.datasets.cache import NpzCacheDataset
+from v2x_sim_tpu_torch.datasets.nuscenes import V2XSimDataset
+from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec, generate_batch
+from v2x_sim_tpu_torch.ops.assign import sparse_cell_capacity, target_fingerprint
+
+#: The reference's --com spellings -> internal mode names.
+COM_ALIASES = {
+    "none": "lowerbound",
+    "lowerbound": "lowerbound",
+    "upperbound": "upperbound",
+    "when2com": "when2com",
+    "who2com": "who2com",
+    "v2v": "v2v",
+    "v2vnet": "v2v",
+    "disco": "disco",
+    "disconet": "disco",
+    "sum": "sum",
+    "mean": "mean",
+    "max": "max",
+    "cat": "cat",
+    "agent": "agent",
+}
+
+#: The 64x64x8 BEV grid of ``--grid small`` (CPU runs).
+SMALL_VOXEL = (1.0, 1.0, 0.625)
+
+
+def add_common_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--data",
+        default="synthetic",
+        help="nuScenes-format V2X-Sim root, .npz cache dir from create_data_det, or 'synthetic'",
+    )
+    p.add_argument(
+        "--com", default="lowerbound", choices=sorted(COM_ALIASES),
+        help="collaboration strategy (reference --com)",
+    )
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--layer", type=int, default=3, help="fusion encoder stage")
+    p.add_argument("--rsu", type=int, default=1, help="include the RSU agent")
+    p.add_argument("--warp_flag", type=int, default=1)
+    p.add_argument("--logpath", default="runs/default")
+    p.add_argument("--resume", default="", help="checkpoint path to resume, or 'auto'")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the CUDA card")
+    p.add_argument(
+        "--grid", default="full", choices=["full", "small"],
+        help="small = 64x64 BEV for CPU smoke runs",
+    )
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true", help="bfloat16 activations")
+    p.add_argument(
+        "--width_mult", type=float, default=1.0,
+        help="uniform channel scale on the backbone stages (1.0 = reference "
+        "widths; 0.25 = CI-cost model, same architecture)",
+    )
+
+
+def grid_config(name: str) -> GridConfig:
+    """The BEV grid of ``--grid full`` (256x256x13) or ``small`` (64x64x8)."""
+    return GridConfig(voxel_size=SMALL_VOXEL) if name == "small" else GridConfig()
+
+
+def build_config(args) -> Config:
+    return Config(grid=grid_config(args.grid), fusion_layer=args.layer)
+
+
+def resolve_mode(args) -> str:
+    return COM_ALIASES[args.com]
+
+
+def device_and_dtype(args) -> Tuple[torch.device, torch.dtype]:
+    """The device (the card, or the CPU with ``--cpu``; raises without a
+    card otherwise) and the activation dtype; turns TF32 off."""
+    device = resolve_device("cpu" if args.cpu else None)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return device, torch.bfloat16 if args.bf16 else torch.float32
+
+
+def strip_stale_targets(raw: dict, config: Config) -> dict:
+    """Guard for baked anchor targets (create_data_det --targets 1).
+
+    Compares the cache's ``tgt_meta`` = [H, W, K, Pc, crc], where crc is
+    ``ops.assign.target_fingerprint`` (the anchor table and assignment
+    thresholds), against the live config. On a mismatch every ``tgt_*``
+    key is dropped, so training assigns targets on the device instead of
+    optimizing against another config's. Metas without the crc are stale
+    too: they cannot prove their anchor table. ``tgt_meta`` itself is
+    always removed: it is host-side metadata, not a device input."""
+    if "tgt_meta" not in raw:
+        return raw
+    h, w = config.grid.bev_shape
+    k = config.anchors.num_anchors
+    arr = np.asarray(raw["tgt_meta"])
+    meta = tuple(int(x) for x in arr.reshape(-1, arr.shape[-1])[0])
+    want = (h, w, k, sparse_cell_capacity(config), target_fingerprint(config))
+    if meta == want:
+        return {key: v for key, v in raw.items() if key != "tgt_meta"}
+    return {key: v for key, v in raw.items() if not key.startswith("tgt_")}
+
+
+def make_batches(
+    args, config: Config, split_seed: int = 0, num_batches: int = 8, shuffle: bool = True,
+) -> Iterator[dict]:
+    """Yield host batches from synthetic scenes, an .npz cache, or a
+    nuScenes-format root.
+
+    ``num_batches`` and ``split_seed`` apply to every source. Evaluation
+    passes shuffle=False so dumped detections stay in temporal order for
+    tracking.
+    """
+    if args.data == "synthetic":
+        spec = SyntheticSpec(points_per_agent=2048 if args.grid == "small" else 8192)
+        for i in range(num_batches):
+            batch = generate_batch(config, spec, args.batch, seed=args.seed + split_seed + i)
+            if not args.rsu:
+                # Reference --rsu 0: drop the road-side unit (agent 0).
+                batch["agent_mask"] = batch["agent_mask"].copy()
+                batch["agent_mask"][:, 0] = False
+            yield batch
+    elif os.path.isdir(os.path.join(args.data, "v1.0-mini")) or any(
+        d.startswith("v1.0") for d in os.listdir(args.data)
+    ):
+        version = next(d for d in sorted(os.listdir(args.data)) if d.startswith("v1.0"))
+        ds = V2XSimDataset(args.data, config, version=version, use_rsu=bool(args.rsu))
+        yield from itertools.islice(
+            ds.batches(args.batch, shuffle=shuffle, seed=args.seed + split_seed), num_batches)
+    else:
+        ds = NpzCacheDataset(args.data)
+        yield from itertools.islice(
+            ds.batches(args.batch, shuffle=shuffle, seed=args.seed + split_seed), num_batches)

@@ -14,7 +14,10 @@ parallelism:
     smooth-L1 losses normalized by the positive count, plus
     ``kd_weight`` times the MSE between the student's fused map and the
     frozen teacher's (once teacher weights are loaded), backward,
-    optional global-norm clipping, one Adam step.
+    optional global-norm clipping, one Adam step; ``step`` counts the
+    steps taken (JAX's ``TrainState.step``, which checkpoints carry);
+  * ``init_weights`` / ``init_teacher_weights``: fresh weights drawn as
+    flax's default initializers draw them (``models/init.py``).
 
 The model runs in the plain layout, with targets in plain (H, W, K)
 anchor order; the JAX package's blocked heads and lazy regression decode
@@ -33,6 +36,7 @@ from v2x_sim_tpu_torch import resolve_device
 from v2x_sim_tpu_torch.bridge import state_dict_from_flax
 from v2x_sim_tpu_torch.configs.config import Config
 from v2x_sim_tpu_torch.models.det.net import DetModel, DetOutput, TeacherModel, check_mode
+from v2x_sim_tpu_torch.models.init import init_flax_defaults_
 from v2x_sim_tpu_torch.ops.anchors import anchor_grid
 from v2x_sim_tpu_torch.ops.assign import SparseTargets, assign_targets_batched, labels_from_sparse_idx
 from v2x_sim_tpu_torch.ops.nms import NMSResult, batched_nms
@@ -68,7 +72,8 @@ class DetModule:
       width_mult: uniform scale of the STPN stage widths (1.0 = 32..512).
       kd_weight: weight of the KD MSE term; > 0 builds the model with
         ``kd`` and adds the teacher's input to ``prepare_batch``. The term
-        applies once ``load_teacher_flax_variables`` has given a teacher.
+        applies once a teacher is loaded (``load_teacher_state_dict``,
+        ``load_teacher_flax_variables`` or ``init_teacher_weights``).
       kd_reduce: "mean" divides the KD squared-error sum by its element
         count; "pos" by the positive count, as the detection terms.
       warp_flag, v2v_rounds, v2v_msg_norm: DetModel's.
@@ -115,23 +120,40 @@ class DetModule:
         self.grad_clip = grad_clip
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        #: Optimization steps taken (host-side; checkpoints carry it).
+        self.step = 0
+
+    def init_weights(self, seed: int) -> None:
+        """Fresh model weights, drawn from ``seed`` as flax's defaults."""
+        init_flax_defaults_(self.model, seed)
 
     def load_flax_variables(self, variables: Mapping[str, Any]) -> None:
         """Load a flax ``{params, batch_stats}`` tree (numpy leaves)."""
         sd = state_dict_from_flax(variables, self.mode)
         self.model.load_state_dict(sd, strict=True)
 
-    def load_teacher_flax_variables(self, variables: Mapping[str, Any]) -> None:
-        """Load the KD teacher from a flax tree of an upperbound model
-        (its weights stay frozen; it runs in BatchNorm's inference mode in
-        the student's parameter dtype)."""
+    def load_teacher_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """Load the KD teacher from the state_dict of an upperbound
+        ``DetModel`` (its weights stay frozen; it runs in BatchNorm's
+        inference mode in the student's parameter dtype)."""
         if self.kd_weight <= 0.0:
             raise ValueError("the teacher is used only with kd_weight > 0")
         dtype = next(self.model.parameters()).dtype
         teacher = TeacherModel(self.config, self.width_mult)
-        teacher.load_state_dict(state_dict_from_flax(variables, "upperbound"), strict=True)
+        teacher.load_state_dict(state_dict, strict=True)
         self.teacher = teacher.to(self.device, dtype, memory_format=torch.channels_last).eval()
         self.teacher.requires_grad_(False)
+
+    def load_teacher_flax_variables(self, variables: Mapping[str, Any]) -> None:
+        """Load the KD teacher from a flax tree of an upperbound model."""
+        self.load_teacher_state_dict(state_dict_from_flax(variables, "upperbound"))
+
+    def init_teacher_weights(self, seed: int) -> None:
+        """A KD teacher with fresh weights drawn from ``seed`` as flax's
+        defaults (what the training tool trains against when no teacher
+        checkpoint is given)."""
+        teacher = init_flax_defaults_(TeacherModel(self.config, self.width_mult), seed)
+        self.load_teacher_state_dict(teacher.state_dict())
 
     def to_device(self, batch: Mapping[str, Any]) -> dict:
         """The batch entries the module reads, as tensors on this device."""
@@ -298,6 +320,7 @@ class DetModule:
             clip_by_global_norm_(
                 [p.grad for p in self.model.parameters() if p.grad is not None], self.grad_clip)
         self.optimizer.step()
+        self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
 
