@@ -71,6 +71,23 @@ Phases, each reported on its own line; any failure exits non-zero:
      1e-6, and over the evaluation's GT jittered); the matrix kernel at
      mAP's operands (F x 512 x 32) against its plain version, where mAP
      reads it, and against its bound.
+ 11. BEV segmentation at full width: SegModel (UNet at depth 4, widths
+     32..256, a 512-channel bottleneck at 16x16 where the agents' maps are
+     fused) on B=16 synthetic scenes, random weights through the bridge.
+     Disco: one eval step (finite logits; the confusion matrix sums to the
+     labeled pixels and equals the CPU's count of the card's predictions),
+     scene 0's logits against the port on the CPU (within 1e-3; argmax
+     flips allowed, and counted, only where the top-2 logits lie within
+     1e-3), one scene's train-mode loss against the CPU (rel 1e-4), finite
+     grads and a loss that falls over 8 fp32 steps; train (step only,
+     prepare + step) and eval scenes/s, per-stage CUDA-event times and
+     peak memory in fp32 and bf16. Every other mode: one eval step and
+     scene 0 against the CPU as for disco; one bf16 train step for cat,
+     agent, when2com and v2v. Then the seg tools' main(argv):
+     create_data_seg writes 16 frames, train_seg trains 2 epochs of 2
+     batches from them (epoch_0, epoch_1) and resumes to epoch 2, test_seg
+     --resume auto evaluates, and test_seg --bf16 must build a float32
+     module. The seg path launches none of the port's kernels.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -81,8 +98,8 @@ of csrc/rotated_iou.cu is built too and timed against this one in turns
 on the main path's operands (lines tagged [A/B]).
 
 Each kernel wrapper's launch count is set to 0 before each path (predict,
-training, every mode's predict, late fusion, KD training, and each tool
-run of the workflow) and read after it. "[time]" lines give each phase's
+training, every mode's predict, late fusion, KD training, each tool run
+of the workflow, and the segmentation phase) and read after it. "[time]" lines give each phase's
 seconds.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -133,6 +150,8 @@ TRAIN_STEPS = 8  # fp32 steps on one batch over which the loss must fall
 #: with trained fusion weights, which also take one bf16 train step.
 OTHER_MODES = ("upperbound", "sum", "mean", "max", "cat", "agent", "when2com", "who2com", "v2v")
 TRAIN_MODES = ("cat", "agent", "when2com", "v2v")
+#: Phase 11's segmentation modes beyond disco.
+SEG_OTHER_MODES = ("lowerbound",) + OTHER_MODES
 KD_WEIGHT = 1e5  # the JAX training tool's default --kd_weight
 CHUNK = 1 << 20  # pairs per chunk of the plain version in the full-size periodic check
 #: Phase 10's workflow: frames baked (2 training batches of BATCH), and
@@ -1471,6 +1490,305 @@ def phase_workflow(device, cfg, card: str, train_rates: dict) -> dict:
     return out
 
 
+def _seg_inputs(module, batch):
+    """(occupancy, trans, agent_mask) of a host batch on the module's device."""
+    import torch
+
+    bt = module.to_device(batch)
+    return module.model_input(bt), bt["trans"], bt["agent_mask"].to(torch.bool)
+
+
+def _seg_scene_vs_cpu(module, cfg, variables, scene, mode: str) -> str:
+    """Scene 0's eval logits on the card against the port on the CPU (same
+    weights, fp32): within LOGIT_TOL, and the argmax class equal but at
+    pixels whose CPU top-2 logits lie within LOGIT_TOL (counted)."""
+    import torch
+
+    from v2x_sim_tpu_torch.train.seg_module import SegModule
+
+    cpu = SegModule(cfg, mode, torch.float32, device="cpu")
+    cpu.load_flax_variables(variables)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu.model(*_seg_inputs(cpu, scene)).logits
+    cpu_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        got = module.model(*_seg_inputs(module, scene)).logits.cpu()
+    d_logit = float((got - ref).abs().max())
+    if not d_logit <= LOGIT_TOL:
+        raise AssertionError(f"seg {mode}: logits card vs CPU differ by {d_logit} > {LOGIT_TOL}")
+    top2 = ref.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= LOGIT_TOL
+    flips = got.argmax(-1) != ref.argmax(-1)
+    if bool((flips & ~near).any()):
+        raise AssertionError(f"seg {mode}: {int((flips & ~near).sum())} argmax classes differ card "
+                             f"vs CPU away from a top-2 tie")
+    return (f"scene 0 card vs CPU: max |d logit| {d_logit:.2e} (tol {LOGIT_TOL}); argmax flips "
+            f"{int(flips.sum())} of {flips.numel()} pixels, each at a top-2 gap <= {LOGIT_TOL} "
+            f"({int(near.sum())} pixels have one) (CPU {cpu_s:.1f} s)")
+
+
+def _seg_eval_check(module, prepared, mode: str) -> str:
+    """One eval step: finite logits, and a confusion matrix that sums to
+    the real agents' labeled pixels and equals the one counted on the CPU
+    from the card's own predictions."""
+    import torch
+
+    from v2x_sim_tpu_torch.utils.seg_metrics import confusion_matrix
+
+    pred, cm = module.eval_step(prepared)
+    with torch.inference_mode():
+        logits = module.model(prepared["occupancy"], prepared["trans"],
+                              prepared["agent_mask"].to(torch.bool)).logits
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"seg {mode}: non-finite eval logits")
+    labels = module.masked_labels(prepared).cpu()
+    valid = int((labels >= 0).sum())
+    c = cm.shape[0]
+    if int(cm.sum()) != valid or not torch.equal(cm.cpu(), confusion_matrix(pred.cpu(), labels, c)):
+        raise AssertionError(f"seg {mode}: the confusion matrix sums to {int(cm.sum())} over "
+                             f"{valid} labeled pixels, or differs from the CPU's count of the "
+                             f"card's predictions")
+    return (f"eval step: logits finite; the {c}x{c} confusion matrix sums to the {valid} labeled "
+            f"pixels and equals the CPU's count of the card's predictions")
+
+
+def _seg_timing(device, cfg, variables, batch, card: str) -> dict:
+    """Disco's train (step only; prepare + step) and eval (prepare + eval
+    step) scenes/s, per-stage CUDA-event times of one prepare + step, and
+    peak memory, in fp32 and bf16."""
+    import torch
+
+    from v2x_sim_tpu_torch.train.seg_module import SegModule
+
+    out = {}
+    b = batch["points"].shape[0]
+    for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        module = SegModule(cfg, "disco", dtype, device=device)
+        module.load_flax_variables(variables)
+        prepared = module.prepare_batch(batch)
+        for _ in range(2):
+            module.train_step(prepared)
+        torch.cuda.synchronize()
+        steps = 5
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            metrics = module.train_step(prepared)
+        torch.cuda.synchronize()
+        step_rate = b * steps / (time.perf_counter() - t0)
+        if not bool(torch.isfinite(metrics["loss"])):
+            raise AssertionError(f"seg: non-finite {label} training loss")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            module.train_step(module.prepare_batch(batch))
+        torch.cuda.synchronize()
+        e2e_rate = b * 3 / (time.perf_counter() - t0)
+        for _ in range(2):
+            module.eval_step(module.prepare_batch(batch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            module.eval_step(module.prepare_batch(batch))
+        torch.cuda.synchronize()
+        eval_rate = b * steps / (time.perf_counter() - t0)
+        del prepared, metrics
+
+        # Per-stage device times of one prepare + step, events between stages.
+        names = ("upload", "voxelize", "down stages", "bottleneck", "fusion", "up stages + head",
+                 "loss", "backward", "optimizer")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.reset_peak_memory_stats()
+        ev[0].record()
+        bt = module.to_device(batch)
+        ev[1].record()
+        occ = module.model_input(bt)
+        ev[2].record()
+        module.optimizer.zero_grad(set_to_none=True)
+        model, am = module.model, bt["agent_mask"].to(torch.bool)
+        x, skips = model.encode(occ, train=True)
+        ev[3].record()
+        x = model.bottleneck(x, train=True)
+        ev[4].record()
+        x = model.fuse(x, bt["trans"], am, train=True)
+        ev[5].record()
+        o = model.decode(x, skips, occ.shape[1], train=True)
+        ev[6].record()
+        loss, _ = module.loss_from_output(o, bt)
+        ev[7].record()
+        loss.backward()
+        ev[8].record()
+        module.optimizer.step()
+        ev[9].record()
+        torch.cuda.synchronize()
+        stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        out[label] = {"step_scenes_per_s": step_rate, "e2e_scenes_per_s": e2e_rate,
+                      "eval_scenes_per_s": eval_rate, "stages_ms": stages, "peak_gib": peak_gib}
+        split = ", ".join(f"{n} {v:.3f}" for n, v in stages.items())
+        log(f"[11] seg disco {label}: train {step_rate:.2f} scenes/s step only, {e2e_rate:.2f} "
+            f"scenes/s prepare + step; eval {eval_rate:.2f} scenes/s prepare + eval step; at B={b} "
+            f"(host clock, synchronized); stages ms of one prepare + step: {split}; peak memory "
+            f"{peak_gib:.2f} GiB [{card}]")
+        del module, bt, occ, x, skips, o, loss
+        torch.cuda.empty_cache()
+    return out
+
+
+def _seg_workflow(cfg, card: str) -> dict:
+    """The segmentation tools at full width through their main(argv), in a
+    temporary directory: bake 16 frames, train 2 epochs of 2 batches from
+    them with checkpoints, resume to epoch 2, evaluate the newest checkpoint
+    (and with --bf16, which must build a float32 module)."""
+    import tempfile
+
+    import torch
+
+    from v2x_sim_tpu_torch.tools import create_data_seg, test_seg, train_seg
+
+    batch = WORKFLOW_FRAMES // 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_") as tmp:
+        cache, run = os.path.join(tmp, "cache"), os.path.join(tmp, "run")
+        frames, bake_s = _run_tool(create_data_seg, [
+            "--root", "synthetic", "--savepath", cache, "--scenes", "1", "--frames",
+            str(WORKFLOW_FRAMES)], tag="[11]")
+        train_args = ["--data", os.path.join(cache, "train"), "--com", "disco", "--batch",
+                      str(batch), "--batches_per_epoch", "2", "--logpath", run]
+        first, _ = _run_tool(train_seg, train_args + ["--nepoch", "2"], tag="[11]")
+        for epoch in (0, 1):
+            if not os.path.exists(os.path.join(run, f"epoch_{epoch}")):
+                raise AssertionError(f"train_seg wrote no epoch_{epoch} checkpoint")
+        if not (first.step == 4 and np.isfinite(first.metrics["loss"])):
+            raise AssertionError(f"train_seg: step {first.step}, metrics {first.metrics}")
+        resumed, _ = _run_tool(train_seg, train_args + ["--nepoch", "3", "--resume", "auto"],
+                               tag="[11]")
+        if (resumed.start_epoch, resumed.start_step, resumed.step) != (2, 4, 6):
+            raise AssertionError(f"train_seg resumed at epoch {resumed.start_epoch}, step "
+                                 f"{resumed.start_step}, ended at {resumed.step}: want 2, 4, 6")
+        rates = first.epoch_scenes_per_sec + resumed.epoch_scenes_per_sec
+        eval_args = ["--com", "disco", "--resume", "auto", "--logpath", run, "--batch", str(BATCH),
+                     "--num_batches", str(WORKFLOW_EVAL_BATCHES)]
+        metrics, eval_s = _run_tool(test_seg, eval_args, tag="[11]")
+        built = []
+        module_cls = test_seg.SegModule
+
+        class Recorded(module_cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                built.append(self.compute_dtype)
+
+        test_seg.SegModule = Recorded
+        try:
+            _run_tool(test_seg, eval_args + ["--bf16"], tag="[11]")
+        finally:
+            test_seg.SegModule = module_cls
+        if built != [torch.float32]:
+            raise AssertionError(f"test_seg --bf16 built modules of {built}: want one float32")
+        if not 0.0 <= metrics["miou"] <= 1.0:
+            raise AssertionError(f"test_seg: mIoU {metrics['miou']}")
+    log(f"[11] seg workflow: create_data_seg {frames} frames in {bake_s:.2f} s ({bake_s / frames:.3f} "
+        f"s a frame, host only); train_seg from the cache at B={batch}, epoch_0 and epoch_1 "
+        f"written, loss {first.metrics['loss']:.4f}; resume --auto started at epoch "
+        f"{resumed.start_epoch}, step {resumed.start_step}; loop scenes/s per epoch "
+        + " ".join(f"{r:.2f}" for r in rates)
+        + f"; test_seg --resume auto at B={BATCH} x {WORKFLOW_EVAL_BATCHES}: mIoU "
+        f"{metrics['miou']:.4f}, vehicle IoU {metrics['vehicle']:.4f}, {eval_s:.2f} s (host clock); "
+        f"test_seg --bf16 built a {built[0]} module [{card}]")
+    return {"bake_s_per_frame": bake_s / frames, "epoch_scenes_per_s": rates, "eval_s": eval_s}
+
+
+def phase_seg(device, cfg, spec, batch_size: int, card: str, seed: int = 40) -> dict:
+    """BEV segmentation at full width: SegModel at depth 4 (widths 32..256,
+    a 512-channel bottleneck at H/16) in every collaboration mode, on
+    B synthetic scenes with random weights through the bridge. Disco: scene
+    0's eval logits and one scene's train loss against the CPU, the eval
+    step's confusion matrix, finite grads and a falling loss, then train
+    and eval rates, per-stage times and peak memory in fp32 and bf16. The
+    other modes: one eval step each, scene 0 against the CPU, and one bf16
+    train step for the trained fusions. Then the seg tools' workflow. The
+    seg path launches none of the port's kernels: their counts are read
+    after the phase."""
+    import torch
+
+    from v2x_sim_tpu_torch.bridge import random_flax_variables
+    from v2x_sim_tpu_torch.datasets.synthetic import generate_batch
+    from v2x_sim_tpu_torch.models.seg.unet import SegModel
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.train.seg_module import SegModule
+
+    iou_cu.reset_launches()
+    batch = generate_batch(cfg, spec, batch_size, seed=seed)
+    scene = {key: v[:1] for key, v in batch.items()}
+    variables = random_flax_variables(SegModel(cfg, "disco"), seed=seed)
+    module = SegModule(cfg, "disco", torch.float32, device=device)
+    module.load_flax_variables(variables)
+    prepared = module.prepare_batch(batch)
+    labels = prepared["seg_labels"]
+    log(f"[11] seg disco at B={batch_size}, {cfg.grid.grid_shape} grid, bottleneck "
+        f"{module.model.bottleneck.conv2.out_channels} channels at "
+        f"{cfg.grid.bev_shape[0] // 2 ** module.model.depth}^2: "
+        f"{_seg_eval_check(module, prepared, 'disco')}; "
+        f"{_seg_scene_vs_cpu(module, cfg, variables, scene, 'disco')}; label pixels "
+        + ", ".join(f"{int((labels == c).sum())} class {c}" for c in range(cfg.num_seg_classes)
+                    if bool((labels == c).any())) + f" [{card}]")
+
+    # One scene's train-mode loss on the card's weights: card vs CPU.
+    cpu = SegModule(cfg, "disco", torch.float32, device="cpu")
+    cpu.load_flax_variables(variables)
+    with torch.no_grad():
+        loss_d = float(module.loss({key: v[:1] for key, v in prepared.items()}, train=True)[0])
+        loss_c = float(cpu.loss(cpu.prepare_batch(scene), train=True)[0])
+    rel = abs(loss_d - loss_c) / abs(loss_c)
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"seg scene 0 loss card {loss_d} vs CPU {loss_c}: rel {rel} > {LOSS_RTOL}")
+    del cpu
+    module.load_flax_variables(variables)  # the running stats as loaded
+    losses = []
+    for i in range(TRAIN_STEPS):
+        losses.append(float(module.train_step(prepared)["loss"]))
+        if i == 0 and not all(bool(torch.isfinite(p.grad).all()) for p in module.model.parameters()):
+            raise AssertionError("seg: non-finite gradients")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"seg: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    log(f"[11] seg disco scene 0 train-mode loss card {loss_d:.6f} vs CPU {loss_c:.6f} (rel "
+        f"{rel:.2e}, tol {LOSS_RTOL}); grads finite; loss over {TRAIN_STEPS} fp32 steps on one "
+        f"batch: " + " ".join(f"{x:.4f}" for x in losses) + f" [{card}]")
+    del module, prepared
+    torch.cuda.empty_cache()
+    out = {"timing": _seg_timing(device, cfg, variables, batch, card), "modes": {}}
+
+    for i, mode in enumerate(SEG_OTHER_MODES):
+        t0 = time.perf_counter()
+        variables = random_flax_variables(SegModel(cfg, mode), seed=seed + 1 + i)
+        module = SegModule(cfg, mode, torch.float32, device=device)
+        module.load_flax_variables(variables)
+        msg = (f"{_seg_eval_check(module, module.prepare_batch(batch), mode)}; "
+               f"{_seg_scene_vs_cpu(module, cfg, variables, scene, mode)}")
+        del module
+        torch.cuda.empty_cache()
+        if mode in TRAIN_MODES:
+            module = SegModule(cfg, mode, torch.bfloat16, device=device)
+            module.load_flax_variables(variables)
+            torch.cuda.reset_peak_memory_stats()
+            loss = float(module.train_step(module.prepare_batch(batch))["loss"])
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if not (np.isfinite(loss)
+                    and all(bool(torch.isfinite(p.grad).all()) for p in module.model.parameters())):
+                raise AssertionError(f"seg {mode}: non-finite bf16 loss or gradients")
+            msg += f"; bf16 train step: loss {loss:.4f}, grads finite, peak memory {peak:.2f} GiB"
+            del module
+            torch.cuda.empty_cache()
+        out["modes"][mode] = msg
+        log(f"[11] seg {mode} at B={batch_size}: {msg}; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    out["workflow"] = _seg_workflow(cfg, card)
+    torch.cuda.synchronize()
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the seg path launched a rotated-IoU kernel: {launches}")
+    log(f"[11] kernel launches over the seg phase: {launches} (the seg path runs none of them)")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -1537,6 +1855,7 @@ def main() -> int:
     timed("kd", phase_kd, device, cfg, variables, train["batch"], card)
     flow = timed("workflow", phase_workflow, device, cfg, card, train_rates)
     bake = flow["bake"]
+    timed("seg", phase_seg, device, cfg, spec, BATCH, card)
     log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"

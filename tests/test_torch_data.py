@@ -192,8 +192,6 @@ def test_nuscenes_dataset_matches_jax(nusc_root):
     for split in ("train", "val", "test"):
         assert len(V2XSimDataset(str(nusc_root), NUSC_CFG, split=split, **kw)) == len(
             JaxV2XSimDataset(str(nusc_root), _jax_config(NUSC_CFG), split=split, **kw))
-    with pytest.raises(TypeError):
-        V2XSimDataset(str(nusc_root), NUSC_CFG, with_seg_labels=True)
 
 
 def test_create_data_det_from_nuscenes_root_matches_jax(nusc_root, tmp_path):

@@ -47,7 +47,11 @@ def test_port_imports_nothing_of_jax():
             "v2x_sim_tpu_torch/native/loader.py", "v2x_sim_tpu_torch/datasets/loader.py",
             "v2x_sim_tpu_torch/datasets/cache.py", "v2x_sim_tpu_torch/datasets/nuscenes.py",
             "v2x_sim_tpu_torch/utils/mean_ap.py", "v2x_sim_tpu_torch/utils/meters.py",
-            "v2x_sim_tpu_torch/train/checkpoint.py"} <= names
+            "v2x_sim_tpu_torch/train/checkpoint.py", "v2x_sim_tpu_torch/models/seg/unet.py",
+            "v2x_sim_tpu_torch/train/seg_module.py", "v2x_sim_tpu_torch/utils/seg_metrics.py",
+            "v2x_sim_tpu_torch/utils/mapping.py", "v2x_sim_tpu_torch/datasets/nuscenes_map.py",
+            "v2x_sim_tpu_torch/tools/create_data_seg.py", "v2x_sim_tpu_torch/tools/train_seg.py",
+            "v2x_sim_tpu_torch/tools/test_seg.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert {k: v for k, v in bad.items() if v} == {}
 
@@ -65,10 +69,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from v2x_sim_tpu_torch import resolve_device
     from v2x_sim_tpu_torch.configs.config import Config
     from v2x_sim_tpu_torch.train.det_module import DetModule
+    from v2x_sim_tpu_torch.train.seg_module import SegModule
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DetModule(Config(), "disco")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SegModule(Config(), "disco")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
@@ -76,13 +83,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["upperbound", "v2v", "when2com"])
 def test_every_mode_constructs(mode):
-    """These modes construct as DetModel and DetModule, and an unknown mode
-    raises ValueError."""
+    """These modes construct as DetModel, DetModule, SegModel and
+    SegModule, and an unknown mode raises ValueError."""
     from v2x_sim_tpu_torch.configs.config import Config
     from v2x_sim_tpu_torch.models.det.net import DetModel
+    from v2x_sim_tpu_torch.models.seg.unet import SegModel
     from v2x_sim_tpu_torch.train.det_module import DetModule
+    from v2x_sim_tpu_torch.train.seg_module import SegModule
 
     assert DetModel(Config(), mode).mode == mode
     assert DetModule(Config(), mode, device="cpu").mode == mode
-    with pytest.raises(ValueError, match="unknown mode"):
-        DetModel(Config(), mode + "_x")
+    assert SegModel(Config(), mode).mode == mode
+    assert SegModule(Config(), mode, device="cpu").mode == mode
+    for model in (DetModel, SegModel):
+        with pytest.raises(ValueError, match="unknown mode"):
+            model(Config(), mode + "_x")

@@ -10,7 +10,9 @@ test_det}.py``) on the CPU at the 64x64x8 grid and width_mult 0.25.
   * The slice against JAX: the same flax variables through both
     ``DetModule.predict`` s (exact top-K) and both ``eval_map_agents``
     over 2 evaluation batches: the mAP dicts equal within 1e-6.
-  * Without a card every tool raises unless given ``--cpu``.
+  * ``test_det --bf16`` evaluates in float32, as the JAX tool does.
+  * Without a card every tool that uses a device (the det tools,
+    ``train_seg`` and ``test_seg``) raises unless given ``--cpu``.
 
 ``config.max_boxes`` is cut to 64 candidates for the tool runs: the plain
 IoU matrix of NMS and late fusion over 512 candidates a agent takes tens
@@ -35,7 +37,7 @@ from v2x_sim_tpu.train.det_module import TrainState as JaxTrainState
 from v2x_sim_tpu.utils.mean_ap import eval_map_agents as jax_eval_map_agents
 from v2x_sim_tpu_torch.bridge import random_flax_variables
 from v2x_sim_tpu_torch.models.det.net import DetModel
-from v2x_sim_tpu_torch.tools import common, create_data_det, test_det, train_det
+from v2x_sim_tpu_torch.tools import common, create_data_det, test_det, test_seg, train_det, train_seg
 from v2x_sim_tpu_torch.train.checkpoint import latest_checkpoint
 from v2x_sim_tpu_torch.train.det_module import DetModule
 from v2x_sim_tpu_torch.utils.mean_ap import eval_map_agents
@@ -127,11 +129,29 @@ def test_evaluation_without_a_checkpoint(cache, tmp_path, capsys, small_max_boxe
         assert (tmp_path / "bev" / "bev_0000.png").stat().st_size > 0
 
 
+def test_det_bf16_evaluates_in_float32(cache, tmp_path, capsys, small_max_boxes):
+    """--bf16 is accepted and evaluates in float32, as the JAX tool does:
+    the same detections and mAP dict as the run without the flag."""
+    argv = SMALL + ["--data", cache, "--com", "disco", "--batch", "2", "--num_batches", "1"]
+    plain = test_det.main(argv + ["--save_dets", str(tmp_path / "fp32")])
+    bf16 = test_det.main(argv + ["--bf16", "--save_dets", str(tmp_path / "bf16")])
+    out = capsys.readouterr().out.split("WARNING")
+    assert len(out) == 3 and out[1] == out[2]  # the same printout
+    assert bf16.metrics == plain.metrics and "mAP@0.5" in plain.metrics
+    with np.load(tmp_path / "fp32" / "dets_00000.npz") as want, \
+            np.load(tmp_path / "bf16" / "dets_00000.npz") as got:
+        assert want["valid"].sum() > 0
+        for key in ("boxes", "scores", "valid"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
 @pytest.mark.parametrize("tool, argv", [
     (create_data_det, ["--savepath", "unused"]),
     (train_det, ["--nepoch", "1"]),
     (test_det, ["--num_batches", "1"]),
-], ids=["create_data_det", "train_det", "test_det"])
+    (train_seg, ["--nepoch", "1"]),
+    (test_seg, ["--num_batches", "1"]),
+], ids=["create_data_det", "train_det", "test_det", "train_seg", "test_seg"])
 def test_tools_raise_without_a_card(tool, argv, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)

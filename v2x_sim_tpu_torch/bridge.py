@@ -11,24 +11,32 @@ inverse of those of ``v2x_sim_tpu/train/torch_convert.py``:
   * GroupNorm ``scale``/``bias``        -> ``weight``/``bias`` (no stats)
   * biases pass through unchanged; a module without one has no ``bias``.
 
-The module-name table extends the port's own copy of
+A key map names, for each port module, its flax module path. The
+detection table (``key_map(mode)``) extends the port's own copy of
 ``v2x_sim_tpu/baselines/torch_ref.py::key_map`` with every mode's fusion
 modules, so the JAX package's
 ``convert_state_dict(port.state_dict(), key_map(mode))`` returns the
 original tree. ``TeacherModel`` has DetModel's submodule names, so an
-upperbound tree loads as the teacher. Trees arrive as nested dicts of
-numpy arrays (or anything ``np.asarray`` takes).
+upperbound tree loads as the teacher. The segmentation table
+(``seg_key_map(mode, depth)``) names SegModel's ``down{i}``,
+``bottleneck``, ``up{i}``, ``head`` and ``fusion``. The converters take a
+key map, or a det mode for ``key_map(mode)``; ``model_key_map(model)``
+gives the one that matches a model. Trees arrive as nested dicts of numpy
+arrays (or anything ``np.asarray`` takes).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
 from v2x_sim_tpu_torch.models.backbone import STAGE_CHANNELS
+from v2x_sim_tpu_torch.models.seg.unet import SegModel
+
+KeyMap = Mapping[str, Tuple[str, ...]]
 
 _BLOCK_PARTS = (("conv1", "Conv_0"), ("bn1", "BatchNorm_0"),
                 ("conv2", "Conv_1"), ("bn2", "BatchNorm_1"))
@@ -73,11 +81,38 @@ def key_map(mode: str = "disco") -> Dict[str, Tuple[str, ...]]:
     return m
 
 
-def _tree_key_map(params: Mapping[str, Any], mode: str) -> Dict[str, Tuple[str, ...]]:
-    """key_map for the modules a flax ``params`` tree holds: V2VNet's
+def seg_key_map(mode: str = "lowerbound", depth: int = 4) -> Dict[str, Tuple[str, ...]]:
+    """Port module prefix -> flax SegModel module path."""
+    m: Dict[str, Tuple[str, ...]] = {}
+    blocks = [(f"downs.{i}", f"down{i}") for i in range(depth)] + [("bottleneck", "bottleneck")]
+    blocks += [(f"ups.{i}", f"up{i}") for i in range(depth)]
+    for tp, fp in blocks:
+        for tk, fk in _BLOCK_PARTS:
+            m[f"{tp}.{tk}"] = (fp, fk)
+    m["head"] = ("head",)
+    for tk, fk in _FUSION_MODULES.get(mode, {}).items():
+        m[f"fusion.{tk}"] = ("fusion",) + fk
+    return m
+
+
+def model_key_map(model: torch.nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """The key map of ``model``: a ``SegModel`` (its mode and depth) or a
+    ``DetModel``/``TeacherModel`` (its mode)."""
+    if isinstance(model, SegModel):
+        return seg_key_map(model.mode, model.depth)
+    return key_map(model.mode)
+
+
+def _as_key_map(kmap: Union[str, KeyMap]) -> KeyMap:
+    """A key map as given, or the det key map of a mode."""
+    return key_map(kmap) if isinstance(kmap, str) else kmap
+
+
+def _tree_key_map(params: Mapping[str, Any], kmap: KeyMap) -> Dict[str, Tuple[str, ...]]:
+    """``kmap`` for the modules a flax ``params`` tree holds: V2VNet's
     GroupNorm only where the tree has it."""
     has_norm = "msg_norm" in params.get("fusion", {})
-    return {k: v for k, v in key_map(mode).items() if has_norm or k != "fusion.msg_norm"}
+    return {k: v for k, v in kmap.items() if has_norm or k != "fusion.msg_norm"}
 
 
 def _node(tree: Mapping[str, Any], path: Tuple[str, ...]) -> Mapping[str, Any]:
@@ -96,12 +131,12 @@ def _leaf_paths(tree: Mapping[str, Any], prefix=()) -> set:
     return out
 
 
-def _param_tensors(params: Mapping[str, Any], mode: str, used: set) -> Dict[str, torch.Tensor]:
+def _param_tensors(params: Mapping[str, Any], kmap: KeyMap, used: set) -> Dict[str, torch.Tensor]:
     """Port parameter name -> float32 tensor from a flax ``params`` tree, or
     from any tree of its shape (optax's Adam moments). Records each flax
     path it reads in ``used``."""
     sd: Dict[str, torch.Tensor] = {}
-    for prefix, path in _tree_key_map(params, mode).items():
+    for prefix, path in _tree_key_map(params, kmap).items():
         node = _node(params, path)
         weight = "scale" if "scale" in node else "kernel"  # a norm, or a conv or Dense
         for tleaf, fleaf in (("weight", weight), ("bias", "bias")):
@@ -115,14 +150,17 @@ def _param_tensors(params: Mapping[str, Any], mode: str, used: set) -> Dict[str,
     return sd
 
 
-def state_dict_from_flax(variables: Mapping[str, Any], mode: str = "disco") -> Dict[str, torch.Tensor]:
-    """Convert a flax ``{"params", "batch_stats"}`` tree into a state_dict
-    for ``DetModel(config, mode)``. Raises KeyError on a missing leaf and
-    ValueError on a flax leaf the table does not consume."""
+def state_dict_from_flax(variables: Mapping[str, Any],
+                         kmap: Union[str, KeyMap] = "disco") -> Dict[str, torch.Tensor]:
+    """Convert a flax ``{"params", "batch_stats"}`` tree into the state_dict
+    of the model ``kmap`` names (a key map, or a mode for ``DetModel(config,
+    mode)``). Raises KeyError on a missing leaf and ValueError on a flax
+    leaf the table does not consume."""
+    kmap = _as_key_map(kmap)
     params, stats = variables["params"], variables.get("batch_stats", {})
     used = {"params": set(), "batch_stats": set()}
-    sd = _param_tensors(params, mode, used["params"])
-    for prefix, path in _tree_key_map(params, mode).items():
+    sd = _param_tensors(params, kmap, used["params"])
+    for prefix, path in _tree_key_map(params, kmap).items():
         if "scale" not in _node(params, path) or prefix in _GROUP_NORMS:
             continue
         for tleaf, fleaf in (("running_mean", "mean"), ("running_var", "var")):
@@ -142,13 +180,14 @@ _FLAX_LEAF = {"bias": ("params", "bias"), "running_mean": ("batch_stats", "mean"
               "running_var": ("batch_stats", "var")}
 
 
-def flax_from_state_dict(sd: Mapping[str, torch.Tensor], mode: str = "disco") -> Dict[str, Any]:
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor],
+                         kmap: Union[str, KeyMap] = "disco") -> Dict[str, Any]:
     """Inverse of :func:`state_dict_from_flax`: a numpy ``{params,
     batch_stats}`` tree from the port's state_dict, or from any subset of
     its keys (``{name: p.grad}`` gives the gradients as a flax tree).
     Leaves are float32, or float64 from a float64 model.
     ``num_batches_tracked`` has no flax leaf and is dropped."""
-    kmap = key_map(mode)
+    kmap = _as_key_map(kmap)
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for key, t in sd.items():
         prefix, _, leaf = key.rpartition(".")
@@ -173,14 +212,15 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor], mode: str = "disco") ->
 def adam_state_from_optax(opt_state: Any, module: Any) -> None:
     """Load optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``), found
     anywhere in ``opt_state`` (a bare Adam state or a chain's tuple), into
-    ``module.optimizer`` (``torch.optim.Adam`` over ``module.model``), so
-    a run of the JAX package continues in the port step for step."""
+    ``module.optimizer`` (``torch.optim.Adam`` over ``module.model``, a
+    det or seg model), so a run of the JAX package continues in the port
+    step for step."""
     adam = _find_adam(opt_state)
     if adam is None:
         raise ValueError("no ScaleByAdamState (count, mu, nu) in the optimizer state")
-    mode = module.model.mode
-    mu = _param_tensors(adam.mu, mode, set())
-    nu = _param_tensors(adam.nu, mode, set())
+    kmap = model_key_map(module.model)
+    mu = _param_tensors(adam.mu, kmap, set())
+    nu = _param_tensors(adam.nu, kmap, set())
     step = float(np.asarray(adam.count))
     for name, p in module.model.named_parameters():
         module.optimizer.state[p] = {
@@ -203,14 +243,14 @@ def _find_adam(state: Any) -> Any:
 
 def random_flax_variables(model: torch.nn.Module, seed: int) -> Dict[str, Any]:
     """A flax-layout ``{params, batch_stats}`` tree of numpy arrays for the
-    shapes of ``model`` (a ``DetModel``), drawn from
+    shapes of ``model`` (a ``DetModel`` or a ``SegModel``), drawn from
     ``np.random.default_rng(seed)``.
 
     He-normal conv and Dense kernels, small random biases and norm
     affines, and random running stats, so activations keep their scale
     through the depth and every parameter kind affects the output."""
     rng = np.random.default_rng(seed)
-    kmap = key_map(model.mode)
+    kmap = model_key_map(model)
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
 
     def put(coll, path, arr):

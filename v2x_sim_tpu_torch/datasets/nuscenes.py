@@ -1,9 +1,6 @@
 """nuScenes-format V2X-Sim dataset reader (devkit-free).
 
-The port's own copy of ``v2x_sim_tpu/datasets/nuscenes.py`` (numpy only),
-without the segmentation labels (``with_seg_labels``), which wait for the
-port of the map-expansion reader and ``utils/mapping.py`` (ROADMAP.md queue
-1 item 10).
+The port's own copy of ``v2x_sim_tpu/datasets/nuscenes.py`` (numpy only).
 
 The V2X-Sim dataset ships in nuScenes format with per-agent lidar
 channels ``LIDAR_TOP_id_{k}``: JSON tables scene / sample / sample_data /
@@ -13,8 +10,9 @@ sample_annotation / ego_pose / calibrated_sensor linked by tokens, plus
   * ``NuScenesTables`` loads the JSON tables once into token-keyed dicts
     and builds the scene -> ordered samples -> per-agent sample_data index.
   * ``V2XSimDataset`` extracts per (sample, agent) padded points in the
-    agent's sensor frame, the pairwise T_{i<-j} transform stack, and GT
-    vehicle boxes per agent frame: the scene dict of
+    agent's sensor frame, the pairwise T_{i<-j} transform stack, GT
+    vehicle boxes per agent frame and, with ``with_seg_labels``, the
+    8-class BEV label map per agent: the scene dict of
     ``datasets/synthetic.py``, so training code does not depend on the
     source.
 
@@ -31,6 +29,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from v2x_sim_tpu_torch.configs.config import Config
+from v2x_sim_tpu_torch.datasets.nuscenes_map import NuScenesMapExpansion, transform_polygons
+from v2x_sim_tpu_torch.utils.mapping import build_seg_labels
 
 TABLE_NAMES = (
     "scene",
@@ -50,6 +50,7 @@ TABLE_NAMES = (
 PCD_FLOATS = 5
 
 VEHICLE_CATEGORY_PREFIX = "vehicle"
+PEDESTRIAN_CATEGORY_PREFIX = "human.pedestrian"
 
 
 def quat_to_yaw(q: Sequence[float]) -> float:
@@ -195,6 +196,15 @@ class NuScenesTables:
             np.asarray(ids, np.int32),
         )
 
+    def map_location(self, sample_token: str) -> Optional[str]:
+        """Map-expansion location of a sample's scene, via scene -> log."""
+        scene_token = self.sample_scene.get(sample_token)
+        if scene_token is None:
+            return None
+        log_token = self.tables["scene"][scene_token].get("log_token")
+        log = self.tables["log"].get(log_token)
+        return log.get("location") if log else None
+
 
 def _scene_split(scene_token: str) -> str:
     """Deterministic 80/10/10 scene partition (stable across runs and
@@ -222,6 +232,7 @@ class V2XSimDataset:
         max_points: Optional[int] = None,
         max_gt: int = 64,
         use_rsu: bool = True,
+        with_seg_labels: bool = False,
         split: Optional[str] = None,
     ):
         """`split`: None (all scenes) or train/val/test — a deterministic
@@ -233,6 +244,8 @@ class V2XSimDataset:
         self.max_points = max_points or config.max_points
         self.max_gt = max_gt
         self.use_rsu = use_rsu
+        self.with_seg_labels = with_seg_labels
+        self._maps: Dict[str, Optional[NuScenesMapExpansion]] = {}  # location -> its map
         self.frames: List[str] = []  # sample tokens with >=1 agent lidar
         for scene_token in sorted(self.nusc.scene_samples):
             if split is not None and _scene_split(scene_token) != split:
@@ -309,7 +322,39 @@ class V2XSimDataset:
             "gt_mask": gt_mask,
             "gt_ids": gt_ids,
         }
+        if self.with_seg_labels:
+            # The 8-class BEV label map: map-expansion polygons (road,
+            # sidewalk, terrain, building, vegetation), then pedestrian
+            # footprints, then vehicle footprints on top.
+            class_polys = self._map_class_polygons(sample_token)
+            pboxes, _ = self.nusc.global_boxes(sample_token, PEDESTRIAN_CATEGORY_PREFIX)
+            extents = (self.config.grid.area_extents[0], self.config.grid.area_extents[1])
+            seg = np.zeros((a,) + self.config.grid.bev_shape, np.int32)
+            for i in range(a):
+                if not agent_mask[i]:
+                    continue
+                seg[i] = build_seg_labels(
+                    self.config,
+                    gt_boxes[i][gt_mask[i]],
+                    layer_polygons=transform_polygons(class_polys, s_from_g[i], extents),
+                    pedestrian_boxes=self._boxes_to_agent(pboxes, s_from_g[i], g_from_s[i]),
+                )
+            out["seg_labels"] = seg
         return out
+
+    def _map_class_polygons(self, sample_token: str):
+        """Global-frame (class, polygons) of the sample's map location; none
+        where the scene names no location or the root has no map for it."""
+        location = self.nusc.map_location(sample_token)
+        if location is None:
+            return []
+        if location not in self._maps:
+            try:
+                self._maps[location] = NuScenesMapExpansion(self.nusc.dataroot, location)
+            except FileNotFoundError:
+                self._maps[location] = None
+        exp = self._maps[location]
+        return [] if exp is None else exp.class_polygons(self.config.seg_class_names)
 
     @staticmethod
     def _boxes_to_agent(

@@ -62,6 +62,32 @@ def check_mode(mode: str) -> None:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
 
+def build_fusion(mode: str, grid, channels: int, num_agents: int, warp_flag: bool = True,
+                 v2v_rounds: int = 3, v2v_msg_norm: bool = False) -> Optional[nn.Module]:
+    """The trained fusion module of ``mode`` over ``channels``-wide maps, or
+    None for the modes without one (lowerbound, upperbound, sum, mean, max)."""
+    if mode == "disco":
+        return F.DiscoFusion(grid, channels)
+    if mode == "cat":
+        return F.CatFusion(grid, channels, num_agents)
+    if mode == "agent":
+        return F.AgentWiseWeightedFusion(grid, channels)
+    if mode in ("when2com", "who2com"):
+        return When2comFusion(grid, channels, argmax_mode=mode == "who2com", warp_flag=warp_flag)
+    if mode == "v2v":
+        return V2VNetFusion(grid, channels, rounds=v2v_rounds, msg_norm=v2v_msg_norm)
+    return None
+
+
+def fuse_agents(mode: str, fusion: Optional[nn.Module], feats, trans, agent_mask, grid,
+                train: bool = False):
+    """(B, A, h, w, C) maps fused across agents by ``mode``: its parameter-free
+    fusion, or its ``fusion`` module (``build_fusion``)."""
+    if mode in _FUSE_FNS:
+        return _FUSE_FNS[mode](feats, trans, agent_mask, grid)
+    return fusion(feats, trans, agent_mask, train)
+
+
 class DetOutput(NamedTuple):
     """cls_logits (B, A, H, W, K, C); reg (B, A, H, W, K, 6); fused_feat
     (B, A, h, w, C) or None."""
@@ -97,18 +123,8 @@ class DetModel(nn.Module):
         k = config.anchors.num_anchors
         self.cls_head = ClassificationHead(chans[0], k, config.num_classes)
         self.reg_head = RegressionHead(chans[0], k, config.anchors.box_code_size)
-        grid, c = config.grid, chans[self.layer]
-        if mode == "disco":
-            self.fusion = F.DiscoFusion(grid, c)
-        elif mode == "cat":
-            self.fusion = F.CatFusion(grid, c, config.num_agents)
-        elif mode == "agent":
-            self.fusion = F.AgentWiseWeightedFusion(grid, c)
-        elif mode in ("when2com", "who2com"):
-            self.fusion = When2comFusion(grid, c, argmax_mode=mode == "who2com",
-                                         warp_flag=warp_flag)
-        elif mode == "v2v":
-            self.fusion = V2VNetFusion(grid, c, rounds=v2v_rounds, msg_norm=v2v_msg_norm)
+        self.fusion = build_fusion(mode, config.grid, chans[self.layer], config.num_agents,
+                                   warp_flag, v2v_rounds, v2v_msg_norm)
 
     # The forward pass in stages, so a profiler can time each one.
 
@@ -127,10 +143,7 @@ class DetModel(nn.Module):
         k = self.layer
         a = agent_mask.shape[1]
         f = unfold_agents(feats[k].permute(0, 2, 3, 1), a)  # (B, A, h, w, C)
-        if self.mode in _FUSE_FNS:
-            fused = _FUSE_FNS[self.mode](f, trans, agent_mask, self.config.grid)
-        else:
-            fused = self.fusion(f, trans, agent_mask, train)
+        fused = fuse_agents(self.mode, self.fusion, f, trans, agent_mask, self.config.grid, train)
         feats = list(feats)
         feats[k] = fold_agents(fused).permute(0, 3, 1, 2)
         return feats

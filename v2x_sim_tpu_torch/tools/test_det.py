@@ -10,7 +10,8 @@ detections for tracking and renders BEV plots.
     python -m v2x_sim_tpu_torch.tools.test_det --com disco --resume auto --logpath RUN
 
 Evaluation seeds start at 2^31 (disjoint from training's) and are not
-shuffled, so dumped detections stay in temporal order.
+shuffled, so dumped detections stay in temporal order. Evaluation runs in
+float32 whatever ``--bf16`` says, as the JAX tool's does.
 """
 
 from __future__ import annotations
@@ -69,8 +70,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Evaluation:
     args = parse_args(argv)
     config = build_config(args)
     mode = resolve_mode(args)
-    device, dtype = device_and_dtype(args)
-    module = DetModule(config, mode, dtype, device, width_mult=args.width_mult,
+    device, _ = device_and_dtype(args)
+    module = DetModule(config, mode, torch.float32, device, width_mult=args.width_mult,
                        warp_flag=bool(args.warp_flag))
     path = args.resume if args.resume != "auto" else latest_checkpoint(args.logpath)
     if path:

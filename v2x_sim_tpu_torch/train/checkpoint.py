@@ -5,8 +5,9 @@ Port of ``v2x_sim_tpu/train/checkpoint.py`` with its names and its
 holding ``{"model": state_dict, "optimizer": state_dict, "step": int}``,
 written to a temporary name and renamed into place, and read back onto
 the CPU with ``torch.load(weights_only=True)`` (loading moves each tensor
-to the module's device). The
-JAX package's orbax checkpoints are not read here (that needs JAX).
+to the module's device). A module is a ``DetModule`` or a ``SegModule``:
+anything with ``model``, ``optimizer`` and ``step``. The JAX package's
+orbax checkpoints are not read here (that needs JAX).
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import torch
 
 
 def save_checkpoint(ckpt_dir: str, module, step: int) -> str:
-    """Write ``module``'s (a ``DetModule``) model and optimizer state and
-    step count to ``<ckpt_dir>/epoch_<step>`` atomically. Returns the path."""
+    """Write ``module``'s (a ``DetModule`` or ``SegModule``) model and
+    optimizer state and step count to ``<ckpt_dir>/epoch_<step>``
+    atomically. Returns the path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.abspath(os.path.join(ckpt_dir, f"epoch_{step}"))
     state = {
@@ -55,7 +57,8 @@ def _load(path: str) -> dict:
 
 def restore_checkpoint(path: str, module):
     """Load a checkpoint's model and optimizer state and step count into
-    ``module`` (a ``DetModule`` of the same mode and widths). Returns it."""
+    ``module`` (a ``DetModule`` or ``SegModule`` of the same mode and
+    widths as the one saved). Returns it."""
     state = _load(path)
     module.model.load_state_dict(state["model"], strict=True)
     module.optimizer.load_state_dict(state["optimizer"])

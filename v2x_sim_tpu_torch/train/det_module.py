@@ -55,6 +55,29 @@ BATCH_KEYS = (
 )
 
 
+def batch_to_device(batch: Mapping[str, Any], keys: Iterable[str], device: torch.device) -> dict:
+    """The entries of ``batch`` named in ``keys`` (numpy arrays or
+    tensors), as tensors on ``device``."""
+    return {
+        k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(device)
+        for k, v in batch.items()
+        if k in keys
+    }
+
+
+def occupancy_input(batch: Mapping[str, torch.Tensor], mode: str, grid, dtype: torch.dtype
+                    ) -> torch.Tensor:
+    """A model's (B, A, H, W, D) occupancy in ``dtype``: ``occupancy`` as
+    given, else the points voxelized (merged into each agent's frame for
+    upperbound)."""
+    if "occupancy" in batch:
+        return batch["occupancy"].to(dtype)
+    if mode == "upperbound":
+        return merged_occupancy(batch["points"], batch["point_mask"], batch["trans"],
+                                batch["agent_mask"].to(torch.bool), grid, dtype)
+    return voxelize_batch(batch["points"], batch["point_mask"], grid, dtype)
+
+
 class DetModule:
     """One detection model configuration on one device.
 
@@ -157,22 +180,12 @@ class DetModule:
 
     def to_device(self, batch: Mapping[str, Any]) -> dict:
         """The batch entries the module reads, as tensors on this device."""
-        return {
-            k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(self.device)
-            for k, v in batch.items()
-            if k in BATCH_KEYS
-        }
+        return batch_to_device(batch, BATCH_KEYS, self.device)
 
     def model_input(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """(B, A, H, W, D) occupancy in the compute dtype: ``occupancy`` as
         given, else the points voxelized (merged for upperbound)."""
-        if "occupancy" in batch:
-            return batch["occupancy"].to(self.compute_dtype)
-        if self.mode == "upperbound":
-            return self.merged_occupancy(batch)
-        return voxelize_batch(
-            batch["points"], batch["point_mask"], self.config.grid, self.compute_dtype
-        )
+        return occupancy_input(batch, self.mode, self.config.grid, self.compute_dtype)
 
     def merged_occupancy(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Early-fusion occupancy of a device batch (ops/voxelize.py)."""

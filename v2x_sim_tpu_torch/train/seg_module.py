@@ -1,0 +1,140 @@
+"""Segmentation task module: the training step and the evaluation step.
+
+Port of ``v2x_sim_tpu/train/seg_module.py::SegModule`` for every
+collaboration mode, without data parallelism:
+
+  * ``prepare_batch``: voxelize the padded points once per batch (merged
+    into each agent's frame for upperbound);
+  * ``train_step``: forward in BatchNorm's training mode, per-pixel
+    cross-entropy over the real agents' labeled pixels, backward, one Adam
+    step (no gradient clipping, unlike detection); ``step`` counts the
+    steps taken, which checkpoints carry;
+  * ``eval_step``: the argmax class map and the batch's confusion matrix;
+  * ``init_weights``: fresh weights drawn as flax's default initializers
+    draw them (``models/init.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
+
+import torch
+
+from v2x_sim_tpu_torch import resolve_device
+from v2x_sim_tpu_torch.bridge import model_key_map, state_dict_from_flax
+from v2x_sim_tpu_torch.configs.config import Config
+from v2x_sim_tpu_torch.models.init import init_flax_defaults_
+from v2x_sim_tpu_torch.models.seg.unet import SegModel, SegOutput
+from v2x_sim_tpu_torch.train.det_module import batch_to_device, occupancy_input
+from v2x_sim_tpu_torch.utils.losses import seg_cross_entropy_sum
+from v2x_sim_tpu_torch.utils.seg_metrics import confusion_matrix
+
+#: Batch keys the module reads.
+BATCH_KEYS = ("points", "point_mask", "trans", "agent_mask", "occupancy", "seg_labels")
+
+
+class SegModule:
+    """One segmentation model configuration on one device.
+
+    Args:
+      config: static geometry config.
+      mode: collaboration mode (models/det/net.py::MODES).
+      compute_dtype: activation dtype; parameters stay float32, the logits
+        and the loss are float32.
+      device: None means the CUDA card, and raises when there is none.
+      learning_rate: Adam's step size (betas 0.9, 0.999, eps 1e-8: optax's
+        defaults).
+      width_mult, depth: SegModel's.
+    """
+
+    def __init__(
+        self,
+        config: Config,
+        mode: str = "lowerbound",
+        compute_dtype: torch.dtype = torch.float32,
+        device: Optional[Union[str, torch.device]] = None,
+        learning_rate: float = 1e-3,
+        width_mult: float = 1.0,
+        depth: int = 4,
+    ):
+        self.config = config
+        self.mode = mode
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(device)
+        self.model = SegModel(config, mode, width_mult, depth).to(
+            self.device, memory_format=torch.channels_last)
+        self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        #: Optimization steps taken (host-side; checkpoints carry it).
+        self.step = 0
+
+    def init_weights(self, seed: int) -> None:
+        """Fresh model weights, drawn from ``seed`` as flax's defaults."""
+        init_flax_defaults_(self.model, seed)
+
+    def load_flax_variables(self, variables: Mapping[str, Any]) -> None:
+        """Load a flax ``{params, batch_stats}`` tree of a SegModel."""
+        sd = state_dict_from_flax(variables, model_key_map(self.model))
+        self.model.load_state_dict(sd, strict=True)
+
+    def to_device(self, batch: Mapping[str, Any]) -> dict:
+        """The batch entries the module reads, as tensors on this device."""
+        return batch_to_device(batch, BATCH_KEYS, self.device)
+
+    def model_input(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """(B, A, H, W, D) occupancy in the compute dtype: ``occupancy`` as
+        given, else the points voxelized (merged for upperbound)."""
+        return occupancy_input(batch, self.mode, self.config.grid, self.compute_dtype)
+
+    @torch.no_grad()
+    def prepare_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """The batch on this device with its ``occupancy``: ``occupancy``,
+        ``trans``, ``agent_mask`` and, where given, ``seg_labels``."""
+        bt = self.to_device(batch)
+        out = {"occupancy": self.model_input(bt), "trans": bt["trans"],
+               "agent_mask": bt["agent_mask"]}
+        if "seg_labels" in bt:
+            out["seg_labels"] = bt["seg_labels"]
+        return out
+
+    def masked_labels(self, prepared: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """(B, A, H, W) labels, -1 (ignored) at padded agents."""
+        am = prepared["agent_mask"].to(torch.bool)
+        return torch.where(am[:, :, None, None], prepared["seg_labels"], -1)
+
+    def loss_from_output(self, out: SegOutput, prepared: Mapping[str, torch.Tensor]
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Cross-entropy sum over max(labeled pixel count, 1)."""
+        ce_sum, ce_n = seg_cross_entropy_sum(out.logits, self.masked_labels(prepared),
+                                             self.config.num_seg_classes)
+        loss = ce_sum / ce_n.clamp(min=1.0)
+        return loss, {"loss": loss}
+
+    def loss(self, prepared: Mapping[str, torch.Tensor], train: bool = True
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Forward (BatchNorm in training mode when ``train``, which updates
+        the running stats) and the loss; returns (loss, metrics)."""
+        am = prepared["agent_mask"].to(torch.bool)
+        out = self.model(prepared["occupancy"], prepared["trans"], am, train=train)
+        return self.loss_from_output(out, prepared)
+
+    def train_step(self, prepared: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One Adam step on a prepared batch. Returns the metrics as device
+        tensors; nothing waits for the device."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = self.loss(prepared, train=True)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    @torch.inference_mode()
+    def eval_step(self, prepared: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(pred (B, A, H, W) int64, the (C, C) int64 confusion matrix of
+        the batch's real agents' labeled pixels)."""
+        am = prepared["agent_mask"].to(torch.bool)
+        out = self.model(prepared["occupancy"], prepared["trans"], am)
+        pred = out.logits.argmax(dim=-1)
+        return pred, confusion_matrix(pred, self.masked_labels(prepared),
+                                      self.config.num_seg_classes)

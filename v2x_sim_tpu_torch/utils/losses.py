@@ -1,9 +1,9 @@
-"""Detection training losses.
+"""Training losses.
 
 Port of ``v2x_sim_tpu/utils/losses.py`` (softmax focal, smooth-L1 dense
-and sparse, KD MSE). Every loss returns ``(sum, count)`` so the caller
-normalizes by a global count. Sums are float32 whatever the activation
-dtype.
+and sparse, KD MSE, segmentation cross-entropy). Every ``*_sum`` loss
+returns ``(sum, count)`` so the caller normalizes by a global count. Sums
+are float32 whatever the activation dtype.
 """
 
 from __future__ import annotations
@@ -88,3 +88,20 @@ def kd_mse_loss_sum(student: torch.Tensor, teacher: torch.Tensor) -> Pair:
     """Feature-map distillation MSE. Returns (squared_error_sum, element_count)."""
     d = student.float() - teacher.float()
     return (d * d).sum(), torch.tensor(float(student.numel()), device=student.device)
+
+
+def seg_cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> Pair:
+    """Per-pixel softmax cross-entropy of (..., C) logits against (...)
+    labels, in float32; labels < 0 are ignored. Returns (loss_sum,
+    valid_pixel_count)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    safe = labels.clamp(0, num_classes - 1).long()
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    weight = (labels >= 0).float()
+    return (nll * weight).sum(), weight.sum()
+
+
+def seg_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """seg_cross_entropy_sum over max(valid pixel count, 1)."""
+    total, n = seg_cross_entropy_sum(logits, labels, num_classes)
+    return total / n.clamp(min=1.0)
