@@ -88,6 +88,23 @@ Phases, each reported on its own line; any failure exits non-zero:
      batches from them (epoch_0, epoch_1) and resumes to epoch 2, test_seg
      --resume auto evaluates, and test_seg --bf16 must build a float32
      module. The seg path launches none of the port's kernels.
+ 12. Visibility input, MGDA training and tracking at full width, through
+     the tools' main(argv): (a) create_data_det --vis 1 --targets 1 bakes
+     16 frames (K2 twice a frame, the aligned pairs at least once), frame
+     0's int8 vis_maps equal to the CPU's bake in every cell and its
+     targets as in phase 10, the bake's s/frame with and without --vis;
+     (b) train_det --use_vis 1 --MGDA --kd_flag 1 from that cache, 2
+     epochs of its one batch of 16 in fp32 and bf16 (no launches, finite
+     metrics, task weights on the simplex); one scene's MGDA step (use_vis, KD, random
+     weights and teacher) against the CPU (weights within 1e-4, losses
+     rel 1e-4); a live batch with no baked targets or maps (K2 twice, the
+     visibility fallback on the card: its time, its peak memory, scene 0
+     equal to the CPU's carving); the MGDA step's rate and peak memory
+     against phase 9's KD step; (c) an 8-frame generate_sequence saved as
+     a cache with gt_ids, test_det --use_vis 1 --save_dets on the card and
+     on the CPU with fixed random weights (K1 for NMS and mAP), then
+     tools/track.py over both dumps: the same kept set at every frame and
+     agent, MOT counts and MOTA equal, IoU means within 1e-4.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -99,8 +116,8 @@ on the main path's operands (lines tagged [A/B]).
 
 Each kernel wrapper's launch count is set to 0 before each path (predict,
 training, every mode's predict, late fusion, KD training, each tool run
-of the workflow, and the segmentation phase) and read after it. "[time]" lines give each phase's
-seconds.
+of the workflow, the segmentation phase, and each run of phase 12) and read after it. "[time]"
+lines give each phase's seconds.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -160,6 +177,8 @@ WORKFLOW_SCENES, WORKFLOW_FRAMES = 2, 16
 WORKFLOW_EVAL_BATCHES = 2
 WORKFLOW_LIVE_BATCHES = 6  # batches of the training run on live targets
 PERIOD = 4099  # a prime period for the random periodic check
+MGDA_W_TOL = 1e-4  # one scene's MGDA task weights, card vs CPU in float64 (and card fp32)
+TRACK_FRAMES = 8  # phase 12's generated sequence
 
 
 def log(msg: str) -> None:
@@ -1789,6 +1808,385 @@ def phase_seg(device, cfg, spec, batch_size: int, card: str, seed: int = 40) -> 
     return out
 
 
+def _vis_bake(tmp: str, card: str) -> dict:
+    """Phase 12 (a): create_data_det --vis 1 --targets 1 on the card against
+    the same bake without --vis (in the order with, without, without, with,
+    so that neither carries the first-use costs alone), frame 0 against the
+    CPU's bake, and frame 0's two --vis costs apart: the carve on the card
+    and the compressed write of its maps."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from v2x_sim_tpu_torch.configs.config import Config
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.tools import create_data_det
+
+    out = {"launches": {"matrix": 0, "pairs": 0, "periodic": 0}}
+    rates = {"1": [], "0": []}
+    for vis in ("1", "0", "0", "1"):
+        iou_cu.reset_launches()
+        frames, secs = _run_tool(create_data_det, [
+            "--root", "synthetic", "--savepath", os.path.join(tmp, f"vis{vis}"), "--scenes", "1",
+            "--frames", str(WORKFLOW_FRAMES), "--targets", "1", "--vis", vis], tag="[12]")
+        torch.cuda.synchronize()
+        got = _launches()
+        for key, v in got.items():
+            out["launches"][key] += v
+        if got["periodic"] != 2 * frames or got["pairs"] < frames or got["matrix"]:
+            raise AssertionError(f"baking {frames} frames (--vis {vis}) launched {got}: want periodic "
+                                 f"{2 * frames}, pairs >= {frames}")
+        rates[vis].append(secs / frames)
+    _, cpu_s = _run_tool(create_data_det, [
+        "--root", "synthetic", "--savepath", os.path.join(tmp, "cpu"), "--scenes", "1", "--frames",
+        "1", "--targets", "1", "--vis", "1", "--cpu"], tag="[12]")
+    name = "scene0000_frame000.npz"
+    card_path = os.path.join(tmp, "vis1", "train", name)
+    same = _check_baked_frame(card_path, os.path.join(tmp, "cpu", "train", name))
+    with np.load(card_path) as c, np.load(os.path.join(tmp, "cpu", "train", name)) as h:
+        vis_card, vis_cpu = c["vis_maps"], h["vis_maps"]
+        frame0 = {k: c[k] for k in ("points", "point_mask")}
+    differ = int((vis_card != vis_cpu).sum())
+    if vis_card.dtype != np.int8 or differ:
+        raise AssertionError(f"baked frame 0: vis_maps ({vis_card.dtype}) differ card vs CPU in "
+                             f"{differ} cells")
+    counts = {name: int((vis_card == v).sum()) for name, v in (("free", 1), ("occupied", 2))}
+    # Frame 0's --vis work in its two parts, 3 times each (host clock,
+    # median): the carve through to the int8 maps on the host, and the
+    # compressed write of those maps alone.
+    config = Config()
+    carve, write = [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vis_write_") as wdir:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            maps = create_data_det.add_vis(frame0, config, torch.device("cuda"), None)["vis_maps"]
+            carve.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            np.savez_compressed(os.path.join(wdir, "vis.npz"), vis_maps=maps)
+            write.append(time.perf_counter() - t0)
+        written = os.path.getsize(os.path.join(wdir, "vis.npz"))
+    if not np.array_equal(maps, vis_card):
+        raise AssertionError("frame 0's maps carved again on the card differ from its bake")
+    pieces = {"carve_s": statistics.median(carve), "write_s": statistics.median(write),
+              "map_mb": maps.nbytes / 1e6, "written_mb": written / 1e6}
+    fmt = lambda xs: "/".join(f"{x:.3f}" for x in xs)
+    log(f"[12] create_data_det --vis 1 --targets 1: {WORKFLOW_FRAMES} frames, {fmt(rates['1'])} s a "
+        f"frame in the 1st and 4th bake (without --vis {fmt(rates['0'])} s in the 2nd and 3rd; host "
+        f"clock: generate, carve, assign, write); launches {out['launches']} over the four bakes; "
+        f"frame 0's vis_maps (int8, {vis_card.shape}, {counts['free']} free and "
+        f"{counts['occupied']} occupied cells) equal the CPU's bake in every cell; {same}; the CPU "
+        f"baked it in {cpu_s:.1f} s. Frame 0's --vis parts (median of 3): carve on the card to "
+        f"int8 on the host {pieces['carve_s']:.4f} s, compressed write of its maps "
+        f"{pieces['write_s']:.4f} s ({pieces['map_mb']:.2f} MB -> {pieces['written_mb']:.2f} MB) "
+        f"[{card}]")
+    out.update({"s_per_frame": sum(rates["1"]) / 2, "s_per_frame_no_vis": sum(rates["0"]) / 2,
+                "rates": rates, **pieces, "cache": os.path.join(tmp, "vis1", "train")})
+    return out
+
+
+def _mgda_step_vs_cpu(device, make, scene) -> str:
+    """One MGDA step (use_vis, KD) of one scene, prepared once on the card,
+    in float64 on the card and on the CPU, and in fp32 on the card: task
+    weights within MGDA_W_TOL of the CPU's float64 ones and on the simplex,
+    losses within LOSS_RTOL. (fp32 gradients of this network move by up to
+    1e-2 of a leaf between devices, and with them the weights by ~1e-4:
+    float64 is the reference that holds the card to the CPU.)"""
+    import torch
+
+    card64 = make(torch.float64, device)
+    prepared = card64.prepare_batch(scene)
+    cast = lambda dtype, dev: {k: (v.to(dtype) if v.dtype == torch.float64 else v).to(dev)
+                               for k, v in prepared.items()}
+    mets = {"card f64": card64.train_step(prepared)}
+    del card64
+    module = make(torch.float64, "cpu")
+    mets["CPU f64"] = module.train_step(cast(torch.float64, "cpu"))
+    module = make(torch.float32, device)
+    mets["card fp32"] = module.train_step(cast(torch.float32, device))
+    del module, prepared
+    mets = {run: {k: float(v) for k, v in m.items()} for run, m in mets.items()}
+    ref = mets["CPU f64"]
+    keys = [k for k in ref if k.startswith("mgda_w_")]
+    msg = []
+    for run in ("card f64", "card fp32"):
+        got = mets[run]
+        dw = max(abs(got[k] - ref[k]) for k in keys)
+        rel = max(abs(got[k] - ref[k]) / abs(ref[k]) for k in ("cls_loss", "loc_loss", "kd_loss", "loss"))
+        on_simplex = abs(sum(got[k] for k in keys) - 1.0) <= 1e-5 and min(got[k] for k in keys) >= 0
+        if sorted(got) != sorted(ref) or len(keys) != 3 or not (
+                dw <= MGDA_W_TOL and rel <= LOSS_RTOL and on_simplex):
+            raise AssertionError(f"MGDA step scene 0 {run} {got} vs CPU f64 {ref}: max |d w| {dw} "
+                                 f"(tol {MGDA_W_TOL}), loss rel {rel} (tol {LOSS_RTOL}), simplex "
+                                 f"{on_simplex}")
+        msg.append(f"{run}: weights " + "/".join(f"{got[k]:.6f}" for k in keys)
+                   + f" (max |d| {dw:.1e}, sum {sum(got[k] for k in keys):.7f}), loss "
+                   f"{got['loss']:.8g} (max rel over the terms {rel:.1e})")
+    torch.cuda.empty_cache()
+    return (f"scene 0's step against the CPU in float64 (weights cls/loc/kd " + "/".join(
+        f"{ref[k]:.6f}" for k in keys) + f", loss {ref['loss']:.8g}; tol {MGDA_W_TOL} and rel "
+        f"{LOSS_RTOL}): " + "; ".join(msg))
+
+
+def _vis_mgda_train(device, cfg, spec, cache: str, card: str, kd_rates: dict) -> dict:
+    """Phase 12 (b): train_det --use_vis 1 --MGDA --kd_flag 1 from the baked
+    cache in fp32 and bf16; one scene's MGDA step against the CPU; the
+    MGDA step's rate and peak memory against phase 9's KD step; one
+    prepare + step of a live batch (no baked targets or maps: the
+    assignment and the visibility fallback run on the card)."""
+    import tempfile
+
+    import torch
+
+    from v2x_sim_tpu_torch.bridge import random_flax_variables
+    from v2x_sim_tpu_torch.datasets.synthetic import generate_batch
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.tools import train_det
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    out = {"launches": {"matrix": 0, "pairs": 0, "periodic": 0}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mgda_") as tmp:
+        for label, extra in (("fp32", []), ("bf16", ["--bf16"])):
+            iou_cu.reset_launches()
+            run, _ = _run_tool(train_det, [
+                "--data", cache, "--com", "disco", "--batch", str(BATCH), "--batches_per_epoch",
+                "1", "--nepoch", "2", "--use_vis", "1", "--MGDA", "--kd_flag", "1", "--log_every",
+                "1", "--logpath", os.path.join(tmp, label)] + extra, tag="[12]")
+            torch.cuda.synchronize()
+            got = _launches()
+            w = [run.metrics.get(f"mgda_w_{k}", -1.0) for k in ("cls_loss", "loc_loss", "kd_loss")]
+            if any(got.values()) or run.step != 2 or not (
+                    np.isfinite(list(run.metrics.values())).all() and abs(sum(w) - 1.0) <= 1e-5
+                    and min(w) >= 0.0):
+                raise AssertionError(f"train_det --use_vis 1 --MGDA ({label}): launches {got}, step "
+                                     f"{run.step}, metrics {run.metrics}")
+            log(f"[12] train_det --use_vis 1 --MGDA --kd_flag 1 {label} from the cache at B={BATCH}, "
+                f"2 epochs of its one batch: no launches (targets and maps baked), loss "
+                f"{run.metrics['loss']:.4f}, weights cls/loc/kd " + " ".join(f"{x:.4f}" for x in w)
+                + "; loop scenes/s per epoch " + " ".join(f"{r:.2f}" for r in run.epoch_scenes_per_sec)
+                + f" [{card}]")
+
+    variables = random_flax_variables(DetModel(cfg, "disco", kd=True, use_vis=True), seed=60)
+    teacher = random_flax_variables(DetModel(cfg, "upperbound"), seed=61)
+
+    def make(dtype, dev):
+        m = DetModule(cfg, "disco", dtype, device=dev, kd_weight=KD_WEIGHT, use_vis=True, mgda=True)
+        if dtype == torch.float64:
+            m.model.double()
+        m.load_flax_variables(variables)
+        m.load_teacher_flax_variables(teacher)
+        return m
+
+    live = generate_batch(cfg, spec, BATCH, seed=62)
+    out["vs_cpu"] = _mgda_step_vs_cpu(device, make, {k: v[:1] for k, v in live.items()})
+    log(f"[12] MGDA + use_vis + KD {out['vs_cpu']}")
+
+    # The live batch: assignment (K2 twice, the aligned pairs) and the
+    # visibility fallback on the card, then one MGDA step.
+    module = make(torch.float32, device)
+    iou_cu.reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    bt = module.to_device(live)
+    ev[1].record()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vis = module.vis_input(bt)
+    ev[2].record()
+    torch.cuda.synchronize()
+    vis_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    prepared = module.prepare_batch(live)
+    ev[3].record()
+    metrics = module.train_step(prepared)
+    ev[4].record()
+    torch.cuda.synchronize()
+    got = _launches()
+    for key, v in got.items():
+        out["launches"][key] += v
+    if got["periodic"] != 2 or got["pairs"] < 1 or got["matrix"]:
+        raise AssertionError(f"the live MGDA batch launched {got}: want periodic 2, pairs >= 1")
+    cpu_vis = module.vis_input({k: v[:1].cpu() for k, v in bt.items()})  # scene 0 on the CPU
+    differ = int((vis[:1].cpu() != cpu_vis).sum())
+    if differ or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"visibility fallback: scene 0 differs from the CPU in {differ} cells, "
+                             f"loss {float(metrics['loss'])}")
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    out["fallback"] = {"vis_ms": ms[1], "vis_peak_gib": vis_peak, "prepare_ms": ms[2],
+                       "step_ms": ms[3]}
+    log(f"[12] live batch at B={BATCH} (no baked targets or maps): launches {got}; the visibility "
+        f"fallback carves {BATCH * cfg.num_agents} clouds ({spec.points_per_agent} points x 384 "
+        f"samples, chunks of 8) in {ms[1]:.2f} ms, peak {vis_peak:.2f} GiB above the batch's, scene "
+        f"0 equal to the CPU's in every cell; prepare_batch (fallback, voxelize, assign, teacher "
+        f"input) {ms[2]:.2f} ms, MGDA step {ms[3]:.2f} ms (CUDA events) [{card}]")
+    del module, bt, vis, prepared, metrics, cpu_vis
+    torch.cuda.empty_cache()
+
+    out["timing"] = {}
+    for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        module = make(dtype, device)
+        prepared = module.prepare_batch(live)
+        module.train_step(prepared)
+        torch.cuda.synchronize()
+        steps = 3
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            module.train_step(prepared)
+        torch.cuda.synchronize()
+        rate = BATCH * steps / (time.perf_counter() - t0)
+        del prepared
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        module.train_step(module.prepare_batch(live))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        kd = kd_rates[label]
+        out["timing"][label] = {"step_scenes_per_s": rate, "peak_gib": peak}
+        log(f"[12] MGDA + use_vis + KD {label}: train {rate:.2f} scenes/s step only at B={BATCH} "
+            f"(phase 9's KD step: {kd['step_scenes_per_s']:.2f}, x{rate / kd['step_scenes_per_s']:.2f}); "
+            f"peak memory of prepare + step {peak:.2f} GiB (phase 9: {kd['peak_gib']:.2f}) [{card}]")
+        del module
+        torch.cuda.empty_cache()
+    return out
+
+
+def _vis_track(device, cfg, spec, tmp: str, card: str) -> dict:
+    """Phase 12 (c): a generated sequence saved as a cache with gt_ids;
+    test_det --use_vis 1 --save_dets on the card and on the CPU (fixed
+    random weights, the visibility fallback), then tools/track.py over
+    each: kept sets per frame and agent equal, and so the tracking results
+    (tracking is host code: equal kept sets give equal results, and random
+    weights' boxes match no GT at IoU 0.5). Then track.py over the
+    sequence's GT jittered by a seeded noise, where SORT associates and the
+    scorers match: its results against TRACK_JITTER_WANT."""
+    import torch
+
+    from v2x_sim_tpu_torch.bridge import random_flax_variables
+    from v2x_sim_tpu_torch.datasets.cache import save_frame
+    from v2x_sim_tpu_torch.datasets.synthetic import generate_sequence
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.tools import test_det, track
+    from v2x_sim_tpu_torch.train.checkpoint import save_checkpoint
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    seq = os.path.join(tmp, "seq")
+    frames = generate_sequence(cfg, spec, seed=70, num_frames=TRACK_FRAMES)
+    for i, frame in enumerate(frames):
+        save_frame(seq, f"frame{i:03d}", frame)
+    module = DetModule(cfg, "disco", device="cpu", use_vis=True)
+    module.load_flax_variables(random_flax_variables(DetModel(cfg, "disco", use_vis=True), seed=71))
+    ckpt = save_checkpoint(os.path.join(tmp, "trk_run"), module, 0)
+    del module
+    results, dumps, secs = {}, {}, {}
+    out = {"launches": {}}
+    for where in ("card", "cpu"):
+        dumps[where] = os.path.join(tmp, f"dets_{where}")
+        argv = ["--data", seq, "--com", "disco", "--batch", str(TRACK_FRAMES), "--num_batches", "1",
+                "--resume", ckpt, "--use_vis", "1", "--save_dets", dumps[where]]
+        iou_cu.reset_launches()
+        _, secs[where] = _run_tool(test_det, argv + (["--cpu"] if where == "cpu" else []), tag="[12]")
+        torch.cuda.synchronize()
+        if where == "card":
+            out["launches"] = _launches()
+        results[where], _ = _run_tool(track, ["--dets", dumps[where]], tag="[12]")
+    got = out["launches"]
+    want = 1 + 2 * cfg.num_agents
+    if got["matrix"] != want or got["pairs"] or got["periodic"]:
+        raise AssertionError(f"test_det --use_vis 1 launched {got}: want matrix {want} (NMS, 2 "
+                             f"thresholds x {cfg.num_agents} agents)")
+    card_z, cpu_z = (_load_npz(os.path.join(dumps[w], "dets_00000.npz")) for w in ("card", "cpu"))
+    if not np.array_equal(card_z["gt_ids"], np.stack([f["gt_ids"] for f in frames])):
+        raise AssertionError("the dumps do not carry the sequence's gt_ids")
+    differ = []
+    for f, a in np.ndindex(*card_z["valid"].shape[:2]):
+        boxes = [torch.from_numpy(z["boxes"][f, a][z["valid"][f, a]]) for z in (card_z, cpu_z)]
+        scores = [torch.from_numpy(z["scores"][f, a][z["valid"][f, a]]) for z in (card_z, cpu_z)]
+        same, _ = _same_kept_set(boxes[0], scores[0], boxes[1], scores[1])
+        if not same:
+            differ.append(f"frame {f} agent {a} ({len(boxes[0])} kept on the card, {len(boxes[1])} "
+                          f"on the CPU)")
+    if differ:
+        raise AssertionError("kept sets differ card vs CPU at " + "; ".join(differ))
+    card_r, cpu_r = results["card"], results["cpu"]
+    counts = ("id_switches", "misses", "false_positives", "num_gt", "matches", "mota")
+    close = lambda k, x, y: x == y if k in counts else abs(x - y) <= 1e-4
+    bad = [(ag, k) for ag in cpu_r for k in cpu_r[ag]
+           if not close(k, card_r.get(ag, {}).get(k, np.nan), cpu_r[ag][k])]
+    unequal = sum(card_r[ag][k] != cpu_r[ag][k] for ag in cpu_r for k in cpu_r[ag])
+    if card_r.keys() != cpu_r.keys() or bad:
+        raise AssertionError(f"tracking results card vs CPU differ at {bad}: {card_r} vs {cpu_r}")
+    kept = int(card_z["valid"].sum())
+    matched = int(sum(r["matches"] for ag, r in card_r.items() if ag != "global"))
+    log(f"[12] tracking: {TRACK_FRAMES}-frame sequence (gt_ids), test_det --use_vis 1 --save_dets on "
+        f"the card in {secs['card']:.2f} s (K1 launches {got}: NMS and mAP) and on the CPU in "
+        f"{secs['cpu']:.1f} s; {kept} boxes kept, the same set at every frame and agent; track.py: "
+        f"global MOTA {card_r['global']['mota']}, HOTA {card_r['global']['hota']} on both, "
+        f"{unequal} printed values apart (counts and MOTA exact, IoU means within 1e-4); "
+        f"{matched} detections match GT at IoU 0.5, so this equality follows from the kept sets "
+        f"[{card}]")
+    jitter = _track_jittered_gt(card_z, os.path.join(tmp, "dets_gt"))
+    out.update({"mota": card_r["global"]["mota"], "hota": card_r["global"]["hota"], "kept": kept,
+                "unequal": unequal, "matched": matched, "jitter": jitter})
+    return out
+
+
+# track.py's results over phase 12's sequence (seed 70, TRACK_FRAMES frames,
+# production geometry) with its GT boxes jittered by TRACK_JITTER_SIGMA
+# (numpy default_rng(72)): the JAX package's tools/track.py reads the same
+# numbers from the same dump, and tests/test_torch_tracking.py holds the
+# port's track.py to that tool.
+TRACK_JITTER_SIGMA = (0.1, 0.1, 0.0, 0.0, 0.02)  # m, m, -, -, rad
+TRACK_JITTER_WANT = {"mota": 0.4653, "hota": 0.5316, "matches": 264, "id_switches": 33,
+                     "misses": 184, "false_positives": 21, "num_gt": 448}
+
+
+def _track_jittered_gt(seq_dump: dict, out_dir: str) -> dict:
+    """track.py over one dump of the sequence's GT boxes, jittered, as the
+    detections (score 0.9): SORT's association and the MOT/HOTA matching
+    run on boxes that do match. Global MOTA and HOTA within 1e-4 and the
+    summed counts exactly as TRACK_JITTER_WANT."""
+    from v2x_sim_tpu_torch.tools import track
+
+    gt, mask = seq_dump["gt_boxes"], seq_dump["gt_mask"]
+    noise = np.random.default_rng(72).normal(size=gt.shape) * np.asarray(TRACK_JITTER_SIGMA)
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez_compressed(
+        os.path.join(out_dir, "dets_00000.npz"), boxes=(gt + noise).astype(np.float32),
+        scores=np.where(mask, 0.9, 0.0).astype(np.float32), valid=mask, gt_boxes=gt,
+        gt_mask=mask, agent_mask=seq_dump["agent_mask"], gt_ids=seq_dump["gt_ids"])
+    res, secs = _run_tool(track, ["--dets", out_dir], tag="[12]")
+    got = {k: res["global"][k] for k in ("mota", "hota")}
+    got.update({k: int(sum(r[k] for ag, r in res.items() if ag != "global"))
+                for k in ("matches", "id_switches", "misses", "false_positives", "num_gt")})
+    bad = [k for k, want in TRACK_JITTER_WANT.items()
+           if (abs(got[k] - want) > 1e-4 if isinstance(want, float) else got[k] != want)]
+    if bad:
+        raise AssertionError(f"track.py over the jittered GT: {got}, want {TRACK_JITTER_WANT} "
+                             f"(apart at {bad})")
+    log(f"[12] track.py over the sequence's GT jittered by {TRACK_JITTER_SIGMA}: {got}, as the "
+        f"JAX package's tool reads them, in {secs:.2f} s (host)")
+    return got
+
+
+def phase_vis_mgda_track(device, cfg, spec, card: str, kd_rates: dict) -> dict:
+    """Visibility input, MGDA training and tracking at full width: (a) the
+    bake with --vis, (b) MGDA training with use_vis and KD, (c) tracking
+    the card's detections against the CPU's. Kernel launches summed over
+    the phase."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vis_") as tmp:
+        bake = _vis_bake(tmp, card)
+        train = _vis_mgda_train(device, cfg, spec, bake["cache"], card, kd_rates)
+        trk = _vis_track(device, cfg, spec, tmp, card)
+    launches = {k: bake["launches"][k] + train["launches"][k] + trk["launches"][k]
+                for k in bake["launches"]}
+    log(f"[12] kernel launches over the phase: {launches}")
+    return {"bake": bake, "train": train, "track": trk, "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -1852,10 +2250,11 @@ def main() -> int:
                         card, per["ms"])
     timed("modes", phase_modes, device, cfg, predict_batch, card)
     late = timed("late fusion", phase_late_fusion, device, cfg, variables, predict_batch, card)
-    timed("kd", phase_kd, device, cfg, variables, train["batch"], card)
+    kd = timed("kd", phase_kd, device, cfg, variables, train["batch"], card)
     flow = timed("workflow", phase_workflow, device, cfg, card, train_rates)
     bake = flow["bake"]
     timed("seg", phase_seg, device, cfg, spec, BATCH, card)
+    vis = timed("vis, MGDA, track", phase_vis_mgda_track, device, cfg, spec, card, kd)["launches"]
     log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"
@@ -1863,13 +2262,13 @@ def main() -> int:
     # candidates; the training batch's forced-anchor test; the mean of the
     # periodic entry's two launches (candidates c1 and c2). Launches and
     # errors include late fusion's and the workflow's (phase 10), whose
-    # times are on the [8] and [10] lines.
+    # times are on the [8] and [10] lines; launches also phase 12's.
     kernels = [{
         "name": "rotated_iou_matrix",
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
-        "launches": predict_launches + late["launches"] + flow["launches"]["matrix"],
+        "launches": predict_launches + late["launches"] + flow["launches"]["matrix"] + vis["matrix"],
         "max_abs_err": max(k["err_mat"], nms["err"], late["err"], flow["map_matrix"]["err"]),
         "ms": nms["ms"],
         "plain_ms": nms["plain_ms"],
@@ -1881,7 +2280,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
-        "launches": train["launches"]["pairs"] + flow["launches"]["pairs"],
+        "launches": train["launches"]["pairs"] + flow["launches"]["pairs"] + vis["pairs"],
         "max_abs_err": max(k["err_pairs"], assign["pairs"]["err"], bake["pairs"]["err"]),
         "ms": assign["pairs"]["ms"],
         "plain_ms": assign["pairs"]["plain_ms"],
@@ -1893,7 +2292,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:199",
-        "launches": train["launches"]["periodic"] + flow["launches"]["periodic"],
+        "launches": train["launches"]["periodic"] + flow["launches"]["periodic"] + vis["periodic"],
         "max_abs_err": max([k["err_per"]] + [c["err"] for c in assign["periodic"] + bake["periodic"]]),
         "ms": per["ms"],
         "plain_ms": per["plain_ms"],

@@ -40,7 +40,7 @@ def test_port_imports_nothing_of_jax():
             "v2x_sim_tpu_torch/train/det_module.py", "v2x_sim_tpu_torch/bridge.py"} <= names
     # Every subpackage is scanned: the tools, the native reader's bindings,
     # the data readers and the evaluation utilities among them.
-    for sub in ("tools", "native", "datasets", "utils", "train", "models", "ops"):
+    for sub in ("tools", "native", "datasets", "utils", "train", "models", "ops", "tracking"):
         assert any(n.startswith(f"v2x_sim_tpu_torch/{sub}/") for n in names), sub
     assert {"v2x_sim_tpu_torch/tools/train_det.py", "v2x_sim_tpu_torch/tools/test_det.py",
             "v2x_sim_tpu_torch/tools/create_data_det.py", "v2x_sim_tpu_torch/tools/common.py",
@@ -51,7 +51,10 @@ def test_port_imports_nothing_of_jax():
             "v2x_sim_tpu_torch/train/seg_module.py", "v2x_sim_tpu_torch/utils/seg_metrics.py",
             "v2x_sim_tpu_torch/utils/mapping.py", "v2x_sim_tpu_torch/datasets/nuscenes_map.py",
             "v2x_sim_tpu_torch/tools/create_data_seg.py", "v2x_sim_tpu_torch/tools/train_seg.py",
-            "v2x_sim_tpu_torch/tools/test_seg.py"} <= names
+            "v2x_sim_tpu_torch/tools/test_seg.py", "v2x_sim_tpu_torch/tools/track.py",
+            "v2x_sim_tpu_torch/tracking/sort.py", "v2x_sim_tpu_torch/tracking/mot_metrics.py",
+            "v2x_sim_tpu_torch/ops/iou_host.py", "v2x_sim_tpu_torch/ops/visibility.py",
+            "v2x_sim_tpu_torch/utils/mgda.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert {k: v for k, v in bad.items() if v} == {}
 
@@ -76,6 +79,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         DetModule(Config(), "disco")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SegModule(Config(), "disco")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DetModule(Config(), "disco", use_vis=True, mgda=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")

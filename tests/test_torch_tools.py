@@ -11,6 +11,16 @@ test_det}.py``) on the CPU at the 64x64x8 grid and width_mult 0.25.
     ``DetModule.predict`` s (exact top-K) and both ``eval_map_agents``
     over 2 evaluation batches: the mAP dicts equal within 1e-6.
   * ``test_det --bf16`` evaluates in float32, as the JAX tool does.
+  * Visibility and MGDA: ``create_data_det --vis 1`` bakes int8
+    ``vis_maps`` equal to the JAX tool's bake of the same frames;
+    ``train_det --use_vis 1 --MGDA --kd_flag 1`` trains from them (the
+    baked maps reach the module: the on-device carving never runs) and
+    resumes; ``test_det --use_vis 1 --save_dets`` over a cache of a
+    generated sequence (with ``gt_ids`` and baked maps) keeps the same
+    boxes (in any slot order, within 2e-3) as the JAX
+    ``DetModule(use_vis=True).predict`` (plain execution) on the same
+    weights, and ``tools/track.py`` over its dumps prints the JSON that
+    the JAX tool prints over JAX's dumps.
   * Without a card every tool that uses a device (the det tools,
     ``train_seg`` and ``test_seg``) raises unless given ``--cpu``.
 
@@ -32,13 +42,29 @@ import jax.numpy as jnp
 
 from v2x_sim_tpu.configs.config import Config as JaxConfig
 from v2x_sim_tpu.configs.config import GridConfig as JaxGrid
+from v2x_sim_tpu.models.det.net import DetModel as JaxDetModel
+from v2x_sim_tpu.datasets.synthetic import SyntheticSpec as JaxSpec
+from v2x_sim_tpu.datasets.synthetic import generate_scene as jax_generate_scene
+from v2x_sim_tpu.tools import create_data_det as jax_create_data_det
+from v2x_sim_tpu.tools import track as jax_track
 from v2x_sim_tpu.train.det_module import DetModule as JaxDetModule
 from v2x_sim_tpu.train.det_module import TrainState as JaxTrainState
 from v2x_sim_tpu.utils.mean_ap import eval_map_agents as jax_eval_map_agents
 from v2x_sim_tpu_torch.bridge import random_flax_variables
 from v2x_sim_tpu_torch.models.det.net import DetModel
-from v2x_sim_tpu_torch.tools import common, create_data_det, test_det, test_seg, train_det, train_seg
-from v2x_sim_tpu_torch.train.checkpoint import latest_checkpoint
+from v2x_sim_tpu_torch.datasets.cache import NpzCacheDataset, save_frame
+from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec, generate_sequence
+from v2x_sim_tpu_torch.ops.visibility import visibility_batch
+from v2x_sim_tpu_torch.tools import (
+    common,
+    create_data_det,
+    test_det,
+    test_seg,
+    track,
+    train_det,
+    train_seg,
+)
+from v2x_sim_tpu_torch.train.checkpoint import latest_checkpoint, save_checkpoint
 from v2x_sim_tpu_torch.train.det_module import DetModule
 from v2x_sim_tpu_torch.utils.mean_ap import eval_map_agents
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401
@@ -145,20 +171,27 @@ def test_det_bf16_evaluates_in_float32(cache, tmp_path, capsys, small_max_boxes)
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
-@pytest.mark.parametrize("tool, argv", [
-    (create_data_det, ["--savepath", "unused"]),
-    (train_det, ["--nepoch", "1"]),
-    (test_det, ["--num_batches", "1"]),
-    (train_seg, ["--nepoch", "1"]),
-    (test_seg, ["--num_batches", "1"]),
+@pytest.mark.parametrize("tool, argv, vis", [
+    (create_data_det, ["--savepath", "unused"], ["--vis", "1"]),
+    (train_det, ["--nepoch", "1"], ["--use_vis", "1", "--MGDA"]),
+    (test_det, ["--num_batches", "1"], ["--use_vis", "1"]),
+    (train_seg, ["--nepoch", "1"], None),
+    (test_seg, ["--num_batches", "1"], None),
 ], ids=["create_data_det", "train_det", "test_det", "train_seg", "test_seg"])
-def test_tools_raise_without_a_card(tool, argv, monkeypatch, tmp_path):
+def test_tools_raise_without_a_card(tool, argv, vis, monkeypatch, tmp_path, capsys):
+    """The det tools take their visibility (and MGDA) flags and still raise
+    without a card; the seg tools reject --use_vis 1 with a usage error."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(argv + ["--grid", "small"])
-    with pytest.raises(SystemExit):  # --use_vis waits for the visibility port
-        tool.main(argv + ["--use_vis", "1"])
+    if vis is not None:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool.main(argv + ["--grid", "small"] + vis)
+    else:
+        with pytest.raises(SystemExit):
+            tool.main(argv + ["--use_vis", "1"])
+        assert "the segmenter takes no visibility input" in capsys.readouterr().err
 
 
 def test_slice_map_matches_jax():
@@ -190,3 +223,96 @@ def test_slice_map_matches_jax():
     for key in m_want:
         assert abs(m_got[key] - m_want[key]) <= 1e-6, (key, m_got[key], m_want[key])
     assert m_want["mAP@0.5"] > 0.0
+
+
+@pytest.fixture(scope="module")
+def vis_cache(tmp_path_factory):
+    root = tmp_path_factory.mktemp("vis_cache")
+    argv = ["--savepath", str(root), "--scenes", "1", "--frames", "4", "--grid", "small",
+            "--targets", "1", "--vis", "1", "--cpu"]
+    assert create_data_det.main(argv) == 4
+    return str(root / "train")
+
+
+def test_create_data_det_bakes_vis_maps_like_jax(vis_cache):
+    jcfg = JaxConfig(grid=JaxGrid(voxel_size=common.SMALL_VOXEL))
+    for fi in (0, 3):
+        with np.load(f"{vis_cache}/scene0000_frame{fi:03d}.npz") as z:
+            got = {k: z[k] for k in z.files}
+        frame = jax_generate_scene(jcfg, JaxSpec(points_per_agent=2048), seed=fi)
+        want = jax_create_data_det._add_vis(frame, jcfg, None)["vis_maps"]
+        assert got["vis_maps"].dtype == np.int8 and got["vis_maps"].shape == (6, 64, 64, 8)
+        np.testing.assert_array_equal(got["vis_maps"], want)
+        assert "tgt_pos_idx" in got and (want == 1).sum() > 1000
+
+
+def test_use_vis_mgda_training_and_resume(vis_cache, tmp_path, monkeypatch):
+    monkeypatch.setattr("v2x_sim_tpu_torch.train.det_module.visibility_batch",
+                        lambda *a, **k: pytest.fail("carved maps despite baked vis_maps"))
+    flags = ["--use_vis", "1", "--MGDA", "--kd_flag", "1"]
+    run = _train(vis_cache, tmp_path / "run", "--nepoch", "2", *flags)
+    assert (run.start_epoch, run.start_step, run.step) == (0, 0, 4)
+    weights = [run.metrics[f"mgda_w_{k}"] for k in ("cls_loss", "loc_loss", "kd_loss")]
+    assert abs(sum(weights) - 1.0) < 1e-5 and min(weights) >= 0.0
+    assert np.isfinite(list(run.metrics.values())).all()
+    resumed = _train(vis_cache, tmp_path / "run", "--nepoch", "3", "--resume", "auto", *flags)
+    assert (resumed.start_epoch, resumed.start_step, resumed.step) == (2, 4, 6)
+    assert "mgda_w_kd_loss" in resumed.metrics
+    log = (tmp_path / "run" / "log.txt").read_text()
+    assert "'use_vis': 1" in log and "'mgda': True" in log
+
+
+def test_use_vis_dets_track_like_jax(tmp_path, capsys, monkeypatch, small_max_boxes):
+    """A 4-frame sequence cache, evaluated by test_det --use_vis 1 on fixed
+    weights, then tracked; JAX predicts the same batches on the same
+    weights and its track tool reads its own dumps."""
+    cfg = common.build_config(train_det.parse_args(["--grid", "small"]))
+    seq = tmp_path / "seq"
+    for i, frame in enumerate(generate_sequence(cfg, SyntheticSpec(points_per_agent=2048), 4, 4)):
+        vis = visibility_batch(torch.from_numpy(frame["points"]),
+                               torch.from_numpy(frame["point_mask"]), cfg.grid)
+        save_frame(str(seq), f"frame{i:03d}", dict(frame, vis_maps=vis.to(torch.int8).numpy()))
+    variables = random_flax_variables(DetModel(cfg, "disco", 0.25, use_vis=True), seed=3)
+    module = DetModule(cfg, "disco", device="cpu", width_mult=0.25, use_vis=True)
+    module.load_flax_variables(variables)
+    ckpt = save_checkpoint(str(tmp_path / "run"), module, 0)
+
+    dets = tmp_path / "dets"
+    test_det.main(SMALL + ["--data", str(seq), "--com", "disco", "--batch", "2", "--num_batches",
+                           "2", "--resume", ckpt, "--use_vis", "1", "--save_dets", str(dets)])
+    capsys.readouterr()
+    got = track.main(["--dets", str(dets), "--min_hits", "1"])
+    printed = capsys.readouterr().out
+
+    jcfg = JaxConfig(grid=JaxGrid(voxel_size=common.SMALL_VOXEL))
+    jmod = JaxDetModule(jcfg, mode="disco", width_mult=0.25, use_vis=True)
+    # The plain execution: the default space-to-depth one moves logits by
+    # rounding, and a kept set by one box where two candidates all but tie.
+    jmod.eval_model = JaxDetModel(config=jcfg, mode="disco", s2d=False, width_mult=0.25)
+    jmod._blocked = False
+    state = JaxTrainState(variables["params"], variables["batch_stats"], None,
+                          jnp.zeros((), jnp.int32))
+    jdets = tmp_path / "jax_dets"
+    jdets.mkdir()
+    for bi, raw in enumerate(NpzCacheDataset(str(seq)).batches(2, workers=0)):
+        batch = {k: raw[k] for k in ("points", "point_mask", "trans", "agent_mask", "vis_maps")}
+        boxes, scores, valid = (np.asarray(t) for t in
+                                jmod.predict(state, batch, MAX_BOXES, 0.1, 0.3, True))
+        with np.load(dets / f"dets_{bi:05d}.npz") as z:
+            # The same boxes kept, in any slot order (NMS's slots follow
+            # candidates whose scores all but tie).
+            np.testing.assert_array_equal(z["valid"].sum(-1), valid.sum(-1))
+            for i in np.ndindex(*valid.shape[:2]):
+                order = lambda bx: bx[np.lexsort(np.round(bx[:, :2], 2).T[::-1])]
+                np.testing.assert_allclose(order(z["boxes"][i][z["valid"][i]]),
+                                           order(boxes[i][valid[i]]), atol=2e-3)
+            np.testing.assert_array_equal(z["gt_ids"], raw["gt_ids"])
+        np.savez_compressed(jdets / f"dets_{bi:05d}.npz", boxes=boxes, scores=scores, valid=valid,
+                            gt_boxes=raw["gt_boxes"], gt_mask=raw["gt_mask"],
+                            agent_mask=raw["agent_mask"], gt_ids=raw["gt_ids"])
+    monkeypatch.setattr("sys.argv", ["track", "--dets", str(jdets), "--min_hits", "1"])
+    jax_track.main()
+    want = capsys.readouterr().out
+    assert valid.sum() > 10
+    assert printed == want and got == json.loads(want)
+    assert "agent0" in got and "no gt_ids" not in printed

@@ -10,12 +10,15 @@ the padded numpy Scene contract:
   trans (B, A, A, 4, 4)     agent_mask (B, A)
   gt_boxes (B, A, M, 5)     gt_mask (B, A, M)        (per-agent frame)
   seg_labels (B, A, H, W)   (BEV semantic classes)
+
+``generate_sequence`` gives the tracking task's frames: moving vehicles
+with persistent identities (``gt_ids``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -108,10 +111,14 @@ def _render_scene(
     rng,
     vehicles: np.ndarray,
     poses: np.ndarray,
+    occl: Optional[np.ndarray] = None,
 ) -> Dict[str, np.ndarray]:
     """Render one frame given world state: vehicles (nv, 5 = x,y,l,w,yaw),
-    agent poses (A, 3 = x,y,yaw). Per-agent occlusion is drawn from `rng`
-    in the JAX package's order, so the same seed gives the same scene."""
+    agent poses (A, 3 = x,y,yaw). With ``occl=None`` per-agent occlusion
+    is drawn from `rng` in the JAX package's order, so the same seed gives
+    the same scene; an (A, nv) bool ``occl`` fixes it instead and draws
+    nothing for it (generate_sequence: occlusion that persists across
+    frames)."""
     a = config.num_agents
     p = spec.points_per_agent
     m = spec.max_gt
@@ -129,7 +136,7 @@ def _render_scene(
     visible = np.zeros((a, nv), bool)
     for i in range(a):
         dist = np.linalg.norm(vehicles[:, :2] - poses[i, :2], axis=-1)
-        dropped = rng.uniform(size=nv) <= spec.occlusion_prob
+        dropped = rng.uniform(size=nv) <= spec.occlusion_prob if occl is None else occl[i]
         vis = (dist < spec.lidar_range) & ~dropped
         visible[i] = vis
         chunks = [
@@ -213,3 +220,63 @@ def generate_batch(
     ]
     return {k: np.stack([s[k] for s in scenes]) for k in scenes[0]}
 
+
+
+def generate_sequence(
+    config: Config,
+    spec: SyntheticSpec,
+    seed: int,
+    num_frames: int,
+    dt: float = 0.5,
+    speed_range: Tuple[float, float] = (1.0, 8.0),
+    yaw_rate_max: float = 0.25,
+) -> List[Dict[str, np.ndarray]]:
+    """A temporal multi-agent sequence for the tracking task: vehicles move
+    at a constant speed with a bounded yaw rate and keep their identities,
+    agents ride their host vehicles (the RSU stays at the origin), and
+    occlusion is drawn once per (agent, vehicle) for the whole sequence,
+    so that an occluded vehicle stays hidden from that agent. Vehicles that
+    leave the world bounds turn around and are clipped back in.
+
+    Returns ``num_frames`` scene dicts (``generate_scene``'s keys) with
+    ``gt_ids`` (A, M) int64 added: the world-vehicle index of each GT slot,
+    -1 where padded. The same seed gives the JAX package's frames.
+    """
+    rng = np.random.default_rng(seed)
+    a = config.num_agents
+    world_lim = min(config.grid.area_extents[0][1] - 4, config.grid.area_extents[1][1] - 4)
+
+    nv = spec.num_vehicles
+    vehicles = np.stack(
+        [
+            rng.uniform(-world_lim, world_lim, nv),
+            rng.uniform(-world_lim, world_lim, nv),
+            rng.uniform(3.8, 5.0, nv),
+            rng.uniform(1.6, 2.1, nv),
+            rng.uniform(-np.pi, np.pi, nv),
+        ],
+        axis=-1,
+    )
+    speeds = rng.uniform(*speed_range, nv)
+    yaw_rates = rng.uniform(-yaw_rate_max, yaw_rate_max, nv)
+    occl = rng.uniform(size=(a, nv)) <= spec.occlusion_prob
+
+    frames = []
+    for _ in range(num_frames):
+        poses = np.zeros((a, 3))  # the RSU, and agents without a host, at the origin
+        for i in range(1, min(a, nv + 1)):
+            poses[i] = vehicles[i - 1, [0, 1, 4]]
+        frame = _render_scene(config, spec, rng, vehicles, poses, occl=occl)
+        # gt_vehicle holds each slot's world-vehicle index, stable across
+        # frames because the in-extents selection is index-ordered.
+        frame["gt_ids"] = frame["gt_vehicle"].astype(np.int64)
+        frames.append(frame)
+
+        vehicles[:, 0] += speeds * np.cos(vehicles[:, 4]) * dt
+        vehicles[:, 1] += speeds * np.sin(vehicles[:, 4]) * dt
+        vehicles[:, 4] += yaw_rates * dt
+        out = (np.abs(vehicles[:, 0]) > world_lim) | (np.abs(vehicles[:, 1]) > world_lim)
+        vehicles[out, 4] += np.pi
+        vehicles[:, 0] = np.clip(vehicles[:, 0], -world_lim, world_lim)
+        vehicles[:, 1] = np.clip(vehicles[:, 1], -world_lim, world_lim)
+    return frames

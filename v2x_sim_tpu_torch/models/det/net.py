@@ -4,7 +4,8 @@ Port of ``v2x_sim_tpu/models/det/net.py`` (``DetModel`` and
 ``TeacherModel``) in the plain layout. Input contract:
 
   occupancy  (B, A, H, W, D)   per-agent BEV voxel occupancy, D z-slices
-                               as channels;
+                               as channels (2·D with ``use_vis``: the
+                               visibility map's slices follow);
   trans      (B, A, A, 4, 4)   pairwise agent transforms, trans[b, i, j] = T_{i<-j};
   agent_mask (B, A)            real-agent mask.
 
@@ -106,11 +107,15 @@ class DetModel(nn.Module):
       v2v_rounds, v2v_msg_norm: v2v only; GNN rounds, GroupNorm on the
         averaged message.
       kd: return the fusion-layer map as ``fused_feat``.
+      use_vis: the input carries D visibility channels after the D
+        occupancy ones (DetModule's ``use_vis``): the encoder's first conv
+        takes 2·D channels.
     """
 
     def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0,
                  fusion_layer: Optional[int] = None, warp_flag: bool = True,
-                 v2v_rounds: int = 3, v2v_msg_norm: bool = False, kd: bool = False):
+                 v2v_rounds: int = 3, v2v_msg_norm: bool = False, kd: bool = False,
+                 use_vis: bool = False):
         super().__init__()
         check_mode(mode)
         self.config = config
@@ -118,7 +123,8 @@ class DetModel(nn.Module):
         self.kd = kd
         self.layer = config.fusion_layer if fusion_layer is None else fusion_layer
         chans = scaled_widths(width_mult)
-        self.encoder = STPNEncoder(config.grid.grid_shape[2], chans)
+        depth = config.grid.grid_shape[2]
+        self.encoder = STPNEncoder(2 * depth if use_vis else depth, chans)
         self.decoder = STPNDecoder(chans)
         k = config.anchors.num_anchors
         self.cls_head = ClassificationHead(chans[0], k, config.num_classes)
@@ -162,7 +168,8 @@ class DetModel(nn.Module):
 
 class TeacherModel(DetModel):
     """Early-fusion teacher for DiscoNet's KD: the upperbound model (backbone
-    and heads on merged-cloud occupancy, no fusion), exposing the
+    and heads on merged-cloud occupancy, no fusion, no visibility input,
+    also under a ``use_vis`` student), exposing the
     fusion-layer map as the KD target. An upperbound model's weights load
     as the teacher (``bridge.key_map("upperbound")``)."""
 

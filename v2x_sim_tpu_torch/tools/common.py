@@ -8,8 +8,9 @@ batch sources (synthetic scenes, a nuScenes-format root, an .npz cache).
 Every tool runs on the CUDA card unless ``--cpu`` is given; without a card
 and without ``--cpu`` it raises. ``--bf16`` selects bf16 activations; the
 tools run with TF32 off in cuDNN and in matrix products, so that fp32
-means fp32. (``--use_vis`` waits for the visibility port, ROADMAP.md
-queue 1 item 11.)
+means fp32. ``--use_vis 1`` feeds the det model the visibility maps (baked
+by ``create_data_det --vis 1``, else carved on the device each batch);
+the seg tools reject it.
 """
 
 from __future__ import annotations
@@ -79,6 +80,18 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
         help="uniform channel scale on the backbone stages (1.0 = reference "
         "widths; 0.25 = CI-cost model, same architecture)",
     )
+    p.add_argument(
+        "--use_vis", type=int, default=0,
+        help="feed visibility maps (the reference's vis_maps) as extra input "
+        "channels; bake them with create_data_det --vis 1 for full-speed runs",
+    )
+
+
+def reject_use_vis(p: argparse.ArgumentParser, args) -> None:
+    """The seg tools' guard: the segmenter takes no visibility input, so
+    ``--use_vis 1`` exits with a usage error (the JAX seg tools ignore it)."""
+    if args.use_vis:
+        p.error("--use_vis: the segmenter takes no visibility input")
 
 
 def grid_config(name: str) -> GridConfig:

@@ -6,12 +6,12 @@ frame per sample into a cache directory that training and evaluation
 stream from (``datasets/cache.py``; the same files as the JAX tool's).
 With ``--targets 1`` it also bakes each frame's sparse anchor assignment,
 computed with the frame's agents as the batch, so training skips the
-assignment. Like every tool, it runs on the card unless ``--cpu`` is given.
+assignment; with ``--vis 1`` it bakes each agent's visibility map
+(``ops/visibility.py``) as int8 ``vis_maps``, which ``--use_vis 1``
+training and evaluation read instead of carving them each batch. Like
+every tool, it runs on the card unless ``--cpu`` is given.
 
-    python -m v2x_sim_tpu_torch.tools.create_data_det --savepath CACHE --targets 1
-
-(``--vis``/``--vis_samples`` wait for the visibility port, ROADMAP.md
-queue 1 item 11.)
+    python -m v2x_sim_tpu_torch.tools.create_data_det --savepath CACHE --targets 1 --vis 1
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from v2x_sim_tpu_torch.ops.assign import (
     sparse_label_idx,
     target_fingerprint,
 )
+from v2x_sim_tpu_torch.ops.visibility import DEFAULT_NUM_SAMPLES, visibility_batch
 from v2x_sim_tpu_torch.tools.common import grid_config
 
 
@@ -55,6 +56,16 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     )
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the CUDA card")
     p.add_argument(
+        "--vis", type=int, default=0,
+        help="also bake per-agent visibility maps (ops/visibility.py) into the "
+        "cache, like the reference's vis_maps",
+    )
+    p.add_argument(
+        "--vis_samples", type=int, default=None,
+        help=f"ray samples per point (default {DEFAULT_NUM_SAMPLES}, the on-device "
+        "fallback's count)",
+    )
+    p.add_argument(
         "--targets", type=int, default=0,
         help="also bake the sparse anchor-assignment targets into the cache; "
         "training then skips the per-batch rotated-IoU assignment. A geometry "
@@ -62,6 +73,18 @@ def parse_args(argv: Optional[Sequence[str]] = None):
         "config changed since baking",
     )
     return p.parse_args(argv)
+
+
+def add_vis(frame: dict, config, device: torch.device, num_samples: Optional[int]) -> dict:
+    """Bake the visibility maps of one frame's agents on ``device``, as
+    (A, H, W, D) int8 ``vis_maps`` in {0, 1, 2}."""
+    vis = visibility_batch(
+        torch.from_numpy(frame["points"]).to(device),
+        torch.from_numpy(frame["point_mask"]).to(device),
+        config.grid,
+        num_samples=DEFAULT_NUM_SAMPLES if num_samples is None else num_samples,
+    )
+    return dict(frame, vis_maps=vis.to(torch.int8).cpu().numpy())
 
 
 def add_targets(frame: dict, config, anchors: torch.Tensor, caps: dict) -> dict:
@@ -110,6 +133,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     caps: dict = {}
 
     def bake(frame):
+        if args.vis:
+            frame = add_vis(frame, config, device, args.vis_samples)
         return add_targets(frame, config, anchors, caps) if args.targets else frame
 
     out = os.path.join(args.savepath, args.split)

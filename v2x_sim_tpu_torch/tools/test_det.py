@@ -10,8 +10,11 @@ detections for tracking and renders BEV plots.
     python -m v2x_sim_tpu_torch.tools.test_det --com disco --resume auto --logpath RUN
 
 Evaluation seeds start at 2^31 (disjoint from training's) and are not
-shuffled, so dumped detections stay in temporal order. Evaluation runs in
-float32 whatever ``--bf16`` says, as the JAX tool's does.
+shuffled, so dumped detections stay in temporal order for
+``tools/track.py`` (the dumps carry the batch's ``gt_ids`` when it has
+them). Evaluation runs in float32 whatever ``--bf16`` says, as the JAX
+tool's does. With ``--use_vis 1`` the model reads the batch's baked
+``vis_maps``, or carves them on the device.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Evaluation:
     mode = resolve_mode(args)
     device, _ = device_and_dtype(args)
     module = DetModule(config, mode, torch.float32, device, width_mult=args.width_mult,
-                       warp_flag=bool(args.warp_flag))
+                       warp_flag=bool(args.warp_flag), use_vis=bool(args.use_vis))
     path = args.resume if args.resume != "auto" else latest_checkpoint(args.logpath)
     if path:
         restore_checkpoint(path, module)

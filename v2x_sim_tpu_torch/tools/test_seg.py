@@ -28,6 +28,7 @@ from v2x_sim_tpu_torch.tools.common import (
     build_config,
     device_and_dtype,
     make_batches,
+    reject_use_vis,
     resolve_mode,
 )
 from v2x_sim_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
@@ -40,7 +41,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     add_common_args(p)
     p.add_argument("--num_batches", type=int, default=4)
     p.add_argument("--visualize", default="", help="dir for pred-vs-GT BEV label map renderings")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    reject_use_vis(p, args)
+    return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:

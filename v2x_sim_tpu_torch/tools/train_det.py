@@ -14,8 +14,9 @@ batch's upload and ``DetModule.prepare_batch`` (voxelize, and the anchor
 assignment unless the cache holds baked targets) run in the prefetch
 thread on their own CUDA stream, overlapping the previous step. Metrics
 are read on the host only every ``--log_every`` steps and at the end of
-each epoch. (``--MGDA`` waits for ROADMAP.md queue 1 item 11, ``--dp`` for
-item 12.)
+each epoch. ``--MGDA`` balances the cls, loc and KD task gradients by
+MGDA (``utils/mgda.py``); ``--use_vis 1`` feeds the visibility maps.
+(``--dp`` waits for ROADMAP.md queue 1 item 12.)
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--kd_flag", type=int, default=0)
     p.add_argument("--kd_weight", type=float, default=1e5)
     p.add_argument("--teacher", default="", help="checkpoint of the early-fusion (upperbound) teacher")
+    p.add_argument("--MGDA", dest="mgda", action="store_true",
+                   help="balance the task gradients by MGDA (the reference's --MGDA)")
     p.add_argument("--batches_per_epoch", type=int, default=8)
     p.add_argument(
         "--log_every", type=int, default=20,
@@ -96,6 +99,7 @@ def _train(args, config, mode, device, dtype, kd_weight, logger) -> TrainRun:
     module = DetModule(
         config, mode, dtype, device, learning_rate=args.lr, grad_clip=args.grad_clip,
         width_mult=args.width_mult, kd_weight=kd_weight, warp_flag=bool(args.warp_flag),
+        use_vis=bool(args.use_vis), mgda=args.mgda,
     )
     module.init_weights(args.seed)
     if kd_weight > 0.0:

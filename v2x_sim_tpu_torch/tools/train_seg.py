@@ -29,6 +29,7 @@ from v2x_sim_tpu_torch.tools.common import (
     build_config,
     device_and_dtype,
     make_batches,
+    reject_use_vis,
     resolve_mode,
 )
 from v2x_sim_tpu_torch.tools.train_det import TrainRun
@@ -43,7 +44,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--nepoch", type=int, default=10)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--batches_per_epoch", type=int, default=8)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    reject_use_vis(p, args)
+    return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainRun:

@@ -1,8 +1,8 @@
 """Detection task module: the predict path and the training step.
 
 Port of ``v2x_sim_tpu/train/det_module.py::DetModule`` for every
-collaboration mode, with DiscoNet's KD, without MGDA, ``use_vis`` or data
-parallelism:
+collaboration mode, with DiscoNet's KD, visibility input and MGDA, without
+data parallelism:
 
   * ``predict``: voxelize the padded points (merged into each agent's
     frame for upperbound), run the model, decode the top-K candidates per
@@ -16,6 +16,10 @@ parallelism:
     frozen teacher's (once teacher weights are loaded), backward,
     optional global-norm clipping, one Adam step; ``step`` counts the
     steps taken (JAX's ``TrainState.step``, which checkpoints carry);
+    with ``mgda``, one backward per task and their MGDA combination;
+  * ``use_vis``: the model's input is the occupancy followed by the
+    visibility map over ``OCCUPIED`` (baked ``vis_maps``, else carved on
+    the device from the points);
   * ``init_weights`` / ``init_teacher_weights``: fresh weights drawn as
     flax's default initializers draw them (``models/init.py``).
 
@@ -41,17 +45,20 @@ from v2x_sim_tpu_torch.ops.anchors import anchor_grid
 from v2x_sim_tpu_torch.ops.assign import SparseTargets, assign_targets_batched, labels_from_sparse_idx
 from v2x_sim_tpu_torch.ops.nms import NMSResult, batched_nms
 from v2x_sim_tpu_torch.ops.postprocess import decode_topk
+from v2x_sim_tpu_torch.ops.visibility import OCCUPIED, visibility_batch
 from v2x_sim_tpu_torch.ops.voxelize import merged_occupancy, voxelize_batch
 from v2x_sim_tpu_torch.utils.losses import (
     kd_mse_loss_sum,
     smooth_l1_loss_sparse_sum,
     softmax_focal_loss_sum,
 )
+from v2x_sim_tpu_torch.utils.mgda import mgda_grads
 
-#: Batch keys the module reads: inputs, GT, and targets baked offline.
+#: Batch keys the module reads: inputs, GT, and targets and visibility
+#: maps baked offline.
 BATCH_KEYS = (
     "points", "point_mask", "trans", "agent_mask", "occupancy", "gt_boxes", "gt_mask",
-    "tgt_labels", "tgt_pos_idx", "tgt_ign_idx", "tgt_cells", "tgt_reg", "tgt_wts",
+    "tgt_labels", "tgt_pos_idx", "tgt_ign_idx", "tgt_cells", "tgt_reg", "tgt_wts", "vis_maps",
 )
 
 
@@ -100,6 +107,10 @@ class DetModule:
       kd_reduce: "mean" divides the KD squared-error sum by its element
         count; "pos" by the positive count, as the detection terms.
       warp_flag, v2v_rounds, v2v_msg_norm: DetModel's.
+      use_vis: feed the visibility map as D more input channels
+        (DetModel's ``use_vis``); the teacher reads no visibility.
+      mgda: train by MGDA over the cls, loc and (with a teacher) KD losses
+        (:meth:`train_step`).
     """
 
     def __init__(
@@ -116,6 +127,8 @@ class DetModule:
         warp_flag: bool = True,
         v2v_rounds: int = 3,
         v2v_msg_norm: bool = False,
+        use_vis: bool = False,
+        mgda: bool = False,
     ):
         check_mode(mode)
         if kd_reduce not in ("mean", "pos"):
@@ -126,12 +139,14 @@ class DetModule:
         self.kd_weight = kd_weight
         self.kd_reduce = kd_reduce
         self.compute_dtype = compute_dtype
+        self.use_vis = use_vis
+        self.mgda = mgda
         self.device = resolve_device(device)
         # Activations arrive channels-last (permuted NHWC views), so the
         # conv weights take the same memory format.
         self.model = DetModel(
             config, mode, width_mult, warp_flag=warp_flag, v2v_rounds=v2v_rounds,
-            v2v_msg_norm=v2v_msg_norm, kd=kd_weight > 0.0,
+            v2v_msg_norm=v2v_msg_norm, kd=kd_weight > 0.0, use_vis=use_vis,
         ).to(self.device, memory_format=torch.channels_last)
         self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
         #: The frozen early-fusion teacher, once its weights are loaded.
@@ -184,8 +199,23 @@ class DetModule:
 
     def model_input(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """(B, A, H, W, D) occupancy in the compute dtype: ``occupancy`` as
-        given, else the points voxelized (merged for upperbound)."""
-        return occupancy_input(batch, self.mode, self.config.grid, self.compute_dtype)
+        given, else the points voxelized (merged for upperbound), followed
+        with ``use_vis`` by the D channels of :meth:`vis_input`."""
+        occ = occupancy_input(batch, self.mode, self.config.grid, self.compute_dtype)
+        if self.use_vis and "occupancy" not in batch:
+            occ = torch.cat([occ, self.vis_input(batch)], dim=-1)
+        return occ
+
+    def vis_input(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """(B, A, H, W, D) visibility in [0, 1], in the compute dtype: the
+        baked ``vis_maps``, else each agent's own cloud carved on this
+        device (ops/visibility.py, DEFAULT_NUM_SAMPLES rays a point), over
+        ``OCCUPIED``."""
+        if "vis_maps" in batch:
+            vis = batch["vis_maps"]
+        else:
+            vis = visibility_batch(batch["points"], batch["point_mask"], self.config.grid)
+        return vis.to(self.compute_dtype) / OCCUPIED
 
     def merged_occupancy(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Early-fusion occupancy of a device batch (ops/voxelize.py)."""
@@ -325,16 +355,44 @@ class DetModule:
 
     def train_step(self, prepared: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One optimization step on a prepared batch. Returns the metrics
-        as device tensors; nothing waits for the device."""
+        as device tensors; nothing waits for the device.
+
+        With ``mgda``: one forward in BatchNorm's training mode (the running
+        stats update once, as the JAX step's do), then one backward per
+        task (``cls_loss``, ``loc_loss``, and ``kd_loss`` once a teacher is
+        loaded; the teacher runs once), each task's gradient zero where its
+        loss does not reach; their MGDA combination (utils/mgda.py) becomes
+        every parameter's gradient, zeros included, so that Adam advances
+        every moment as optax does. The metrics add ``mgda_w_<task>``."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self.loss(prepared, train=True)
-        loss.backward()
+        if self.mgda:
+            metrics = self._mgda_backward(prepared)
+        else:
+            loss, metrics = self.loss(prepared, train=True)
+            loss.backward()
         if self.grad_clip > 0.0:
             clip_by_global_norm_(
                 [p.grad for p in self.model.parameters() if p.grad is not None], self.grad_clip)
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
+
+    def _mgda_backward(self, prepared: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Set every parameter's ``.grad`` to the MGDA combination of the
+        task gradients; returns the metrics with the task weights."""
+        _, metrics = self.loss(prepared, train=True)
+        tasks = ["cls_loss", "loc_loss"] + (["kd_loss"] if "kd_loss" in metrics else [])
+        params = list(self.model.parameters())
+        grads = []
+        for i, key in enumerate(tasks):
+            g = torch.autograd.grad(metrics[key], params, retain_graph=i + 1 < len(tasks),
+                                    allow_unused=True)
+            grads.append([torch.zeros_like(p) if gi is None else gi for p, gi in zip(params, g)])
+        combined, weights = mgda_grads(grads)
+        for p, g in zip(params, combined):
+            p.grad = g
+        metrics.update({f"mgda_w_{key}": weights[i] for i, key in enumerate(tasks)})
+        return metrics
 
 
 @torch.no_grad()
