@@ -105,6 +105,22 @@ Phases, each reported on its own line; any failure exits non-zero:
      on the CPU with fixed random weights (K1 for NMS and mAP), then
      tools/track.py over both dumps: the same kept set at every frame and
      agent, MOT counts and MOTA equal, IoU means within 1e-4.
+ 13. The benchmark-table, diagnostic and profiling tools at full width,
+     through their main(argv): bench_table's det sweep (lowerbound, disco,
+     upperbound, disco+kd; B=4, a pool of 2 batches baked on the card, 4
+     cosine steps, eval at 2 and 4, states saved): K2 launches in the
+     bake (2 a pool batch) and in each mode's warmup step on live targets
+     (2), never in a training step; disco+kd's teacher is the upperbound row
+     (teacher_s 0), every row and curve finite; the seg sweep (disco, 2
+     steps; no launch); bench_table_track over the saved states (one
+     4-frame sequence; K1 for NMS); merge and assemble over those outputs;
+     diag_v2v (2 steps at B=2: 3 probes of 3 rounds of finite gate
+     stats); diag_upperbound (2 steps, probes at 0 and 2), and its probe
+     on the card after a training step leaves every parameter, buffer and
+     Adam state bit-identical; profile_det's stage budget at B=16 in bf16
+     with prepare and train; xprof_det's kernel profile and device busy
+     and idle shares of train, prepare (the assignment's kernels by name)
+     and predict at B=16.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -116,8 +132,9 @@ on the main path's operands (lines tagged [A/B]).
 
 Each kernel wrapper's launch count is set to 0 before each path (predict,
 training, every mode's predict, late fusion, KD training, each tool run
-of the workflow, the segmentation phase, and each run of phase 12) and read after it. "[time]"
-lines give each phase's seconds.
+of the workflow, the segmentation phase, each run of phase 12 and each
+tool run of phase 13) and read after it. "[time]" lines give each
+phase's seconds.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -179,6 +196,12 @@ WORKFLOW_LIVE_BATCHES = 6  # batches of the training run on live targets
 PERIOD = 4099  # a prime period for the random periodic check
 MGDA_W_TOL = 1e-4  # one scene's MGDA task weights, card vs CPU in float64 (and card fp32)
 TRACK_FRAMES = 8  # phase 12's generated sequence
+#: Phase 13: the bench tools' grid (bench_table's names) and the profilers'
+#: (full or small); a CPU rehearsal sets smaller ones.
+TOOLS_GRID, PROFILE_GRID = "full", "full"
+#: Phase 13's bench_table det sweep, and its pool of training batches.
+TOOLS_MODES = ("lowerbound", "disco", "upperbound", "disco+kd")
+TOOLS_POOL = 2
 
 
 def log(msg: str) -> None:
@@ -2187,6 +2210,216 @@ def phase_vis_mgda_track(device, cfg, spec, card: str, kd_rates: dict) -> dict:
     return {"bake": bake, "train": train, "track": trk, "launches": launches}
 
 
+def _finite_values(record, what: str) -> None:
+    """Every number of a JSON record (nested lists and dicts too) finite."""
+    def walk(v):
+        if isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool) and not np.isfinite(v):
+            raise AssertionError(f"{what}: a value is not finite: {record}")
+    walk(record)
+
+
+def _probe_keeps_state(device) -> str:
+    """diag_upperbound's probe on the card, after one training step on a
+    baked pool batch: parameters, buffers and Adam state bit-identical."""
+    import torch
+
+    from v2x_sim_tpu_torch.datasets.synthetic import generate_batch
+    from v2x_sim_tpu_torch.tools import bench_table, diag_upperbound
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    args = diag_upperbound.parse_args(["--grid", TOOLS_GRID, "--batch", "2", "--data_pool", "1",
+                                       "--eval_batches", "1"])
+    args.device = device
+    cfg, spec = bench_table.build_config(args), bench_table.build_spec(args)
+    mod = DetModule(cfg, "upperbound", device=device, learning_rate=args.lr)
+    mod.init_weights(0)
+    stream = bench_table._train_stream(args, cfg, spec, 0, {})
+    mod.train_step(mod.prepare_batch(stream(0)))
+    held = [generate_batch(cfg, spec, batch_size=2, seed=900_000)]
+    state = {k: v.clone() for k, v in mod.model.state_dict().items()}
+    opt = [{k: v.clone() for k, v in st.items()} for st in mod.optimizer.state.values()]
+    rec = diag_upperbound.probe_record(mod, held, [mod.prepare_batch(h) for h in held], [stream(0)],
+                                       args)
+    _finite_values(rec, "diag_upperbound probe")
+    moved = [k for k, v in mod.model.state_dict().items() if not torch.equal(v, state[k])]
+    moved += [f"adam {i}.{k}" for i, st in enumerate(mod.optimizer.state.values())
+              for k, v in st.items() if not torch.equal(v, opt[i][k])]
+    if moved:
+        raise AssertionError(f"diag_upperbound's probe moved {moved[:5]} ({len(moved)} in all)")
+    return (f"a probe after one step moved none of {len(state)} state entries and "
+            f"{len(opt)} Adam states (held BN gap: cls {rec['held_cls_loss_run']} running vs "
+            f"{rec['held_cls_loss_bat']} batch stats)")
+
+
+def phase_tools(device, card: str) -> dict:
+    """Phase 13: the benchmark-table, diagnostic and profiling tools through
+    their main(argv) at full width (Config(): 256x256x13, 6 agents), in a
+    temporary directory. Returns the summed kernel launches, the profile
+    rows and the xprof reports."""
+    import tempfile
+
+    import torch
+
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.tools import (
+        bench_table,
+        bench_table_assemble,
+        bench_table_merge,
+        bench_table_track,
+        diag_upperbound,
+        diag_v2v,
+        profile_det,
+        xprof_det,
+    )
+
+    cpu = ["--cpu"] if device.type == "cpu" else []
+    grid = ["--grid", TOOLS_GRID, "--agents", "6"] + cpu
+    total = {"matrix": 0, "pairs": 0, "periodic": 0}
+    out = {}
+
+    def run(tool, argv, check=lambda c: True):
+        """``tool.main(argv)``; its launches, held to ``check`` on the card."""
+        iou_cu.reset_launches()
+        result, secs = _run_tool(tool, argv, tag="[13]")
+        counts = _launches()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            if not check(counts):
+                raise AssertionError(f"{tool.__name__} launched {counts}")
+        for key, v in counts.items():
+            total[key] += v
+        return result, secs, counts
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        # (a) The det sweep: a baked pool on the card, four modes, disco+kd on
+        # the upperbound row's state. K2 runs in the bake (2 a pool batch)
+        # and in each mode's warmup step on live targets (2), as the JAX
+        # tool's; never in a training step.
+        states, table = os.path.join(tmp, "states"), os.path.join(tmp, "BT.md")
+        bake_counts = []
+        bake = bench_table._bake_pool_targets
+
+        def counted_bake(*a, **kw):
+            before = _launches()
+            n = bake(*a, **kw)
+            bake_counts.append({k: v - before[k] for k, v in _launches().items()})
+            return n
+
+        bench_table._bake_pool_targets = counted_bake
+        try:
+            rows, secs, counts = run(bench_table, grid + [
+                "--modes", ",".join(TOOLS_MODES), "--steps", "4", "--batch", "4", "--data_pool",
+                str(TOOLS_POOL), "--bake_pool", "1", "--cosine", "--eval_at", "2", "--eval_batches",
+                "1", "--save_states", states, "--out", table],
+                check=lambda c: c["periodic"] == 2 * TOOLS_POOL + 2 * len(TOOLS_MODES)
+                and c["pairs"] >= TOOLS_POOL + len(TOOLS_MODES) and c["matrix"] > 0)
+        finally:
+            bench_table._bake_pool_targets = bake
+        if device.type == "cuda" and [c["periodic"] for c in bake_counts] != [2 * TOOLS_POOL]:
+            raise AssertionError(f"the pool bake launched {bake_counts}: want one bake, "
+                                 f"periodic {2 * TOOLS_POOL}")
+        curves_path = os.path.join(tmp, "BT_curves.jsonl")
+        with open(curves_path) as f:
+            curves = [json.loads(line) for line in f if line.strip()]
+        if [r["mode"] for r in rows] != list(TOOLS_MODES) or rows[-1]["teacher_s"] != 0.0:
+            raise AssertionError(f"bench_table rows {rows}: want {TOOLS_MODES}, disco+kd's teacher_s 0")
+        if [[e["step"] for e in c["curve"]] for c in curves] != [[2, 4]] * len(TOOLS_MODES):
+            raise AssertionError(f"bench_table curves {curves}")
+        _finite_values(rows, "bench_table rows")
+        _finite_values(curves, "bench_table curves")
+        log(f"[13] bench_table det {','.join(TOOLS_MODES)} at B=4, pool {TOOLS_POOL} baked, 4 cosine "
+            f"steps, eval at 2 and 4: {secs:.1f} s, launches {counts} (the bake {bake_counts}, "
+            f"K2's rest in the {len(TOOLS_MODES)} warmup steps, none in a training step); "
+            + "; ".join(f"{r['mode']} {r['steps_per_s']} steps/s, compile_s {r['compile_s']}"
+                        for r in rows) + f" [{card}]")
+        out["bench_table"] = {"rows": rows, "s": secs, "launches": counts}
+        # (b) The seg sweep: no kernel of the port on its path.
+        seg_rows, secs, counts = run(bench_table, grid + [
+            "--task", "seg", "--modes", "disco", "--steps", "2", "--batch", "4", "--eval_batches",
+            "1", "--out", os.path.join(tmp, "BTS.md")],
+            check=lambda c: not any(c.values()))
+        _finite_values(seg_rows, "bench_table seg rows")
+        log(f"[13] bench_table seg disco, 2 steps at B=4: {secs:.1f} s, mIoU {seg_rows[0]['mIoU']}, "
+            f"launches {counts}")
+        # (c) The tracking table over the saved states: one 4-frame sequence.
+        track_rows, secs, counts = run(bench_table_track, grid + [
+            "--states", states, "--seqs", "1", "--frames", "4", "--out", os.path.join(tmp, "BTT.md")],
+            check=lambda c: c["matrix"] > 0 and c["periodic"] == 0)
+        if [r["mode"] for r in track_rows] != list(TOOLS_MODES):
+            raise AssertionError(f"bench_table_track rows {[r['mode'] for r in track_rows]}")
+        _finite_values([{k: v for k, v in r.items() if k != "streams"} for r in track_rows],
+                       "bench_table_track rows")
+        log(f"[13] bench_table_track over {len(track_rows)} saved states, 1 sequence x 4 frames: "
+            f"{secs:.1f} s, launches {counts}; MOTA "
+            + ", ".join(f"{r['mode']} {r['mota']}" for r in track_rows))
+        # (d) Merge and assemble over those outputs (host only).
+        merged = os.path.join(tmp, "M.md")
+        run(bench_table_merge, ["--curves", curves_path, "--out", merged],
+            check=lambda c: not any(c.values()))
+        log_path = os.path.join(tmp, "rows.log")
+        with open(log_path, "w") as f:
+            f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+        assembled = os.path.join(tmp, "A.md")
+        run(bench_table_assemble, ["--logs", log_path, "--curves", curves_path, "--header",
+                                   "chip_smoke phase 13", "--out", assembled, "--curves_out",
+                                   os.path.join(tmp, "A_curves.jsonl")],
+            check=lambda c: not any(c.values()))
+        for path in (merged, assembled):
+            with open(path) as f:
+                text = f.read()
+            missing = [m for m in TOOLS_MODES if f"**{m}**" not in text and f"| {m} |" not in text]
+            if missing:
+                raise AssertionError(f"{os.path.basename(path)} lacks {missing}")
+        log("[13] bench_table_merge and bench_table_assemble: every mode in both tables")
+        # (e) diag_v2v: the GRU tap, one row a round at every probe.
+        records, secs, counts = run(diag_v2v, grid + ["--steps", "2", "--probe_every", "1",
+                                                      "--batch", "2"])
+        if [r["step"] for r in records] != [0, 1, 2] or any(len(r["gru_rounds"]) != 3 for r in records):
+            raise AssertionError(f"diag_v2v records {records}")
+        _finite_values(records, "diag_v2v")
+        log(f"[13] diag_v2v 2 steps at B=2: {secs:.1f} s, 3 probes x 3 rounds of finite gate stats; "
+            f"last round at step 2: {records[-1]['gru_rounds'][-1]}")
+        # (f) diag_upperbound; then its probe against a run's state.
+        diag, secs, counts = run(diag_upperbound, grid + [
+            "--modes", "upperbound", "--steps", "2", "--probe_every", "2", "--data_pool", "2",
+            "--batch", "2", "--eval_batches", "1", "--out", os.path.join(tmp, "diag.jsonl")])
+        if [r["step"] for r in diag] != [0, 2]:
+            raise AssertionError(f"diag_upperbound records {diag}")
+        _finite_values(diag, "diag_upperbound")
+        log(f"[13] diag_upperbound 2 steps at B=2: {secs:.1f} s, launches {counts}; "
+            f"{_probe_keeps_state(device)}")
+        out["diag_upperbound"] = diag[-1]
+        # (g) The profilers at B=16, bf16.
+        prof = ["--grid", PROFILE_GRID, "--batch", str(BATCH)] + cpu
+        rows_ms, secs, counts = run(profile_det, prof + ["--train", "1"])
+        if not all(np.isfinite(v) and v > 0 for v in rows_ms.values()) or len(rows_ms) != 9:
+            raise AssertionError(f"profile_det rows {rows_ms}")
+        out["profile_det"] = rows_ms
+        out["xprof"] = {}
+        for what in ("train", "prepare", "predict"):
+            rep, secs, counts = run(xprof_det, prof + ["--what", what, "--top", "15",
+                                                       "--trace_dir", os.path.join(tmp, "xt")])
+            if device.type == "cuda":
+                if not 0.0 < rep["busy"] <= 1.0:
+                    raise AssertionError(f"xprof_det {what}: busy share {rep['busy']}")
+                if what == "prepare" and rep["categories_ms"]["rotated_iou (K1, K2)"] <= 0.0:
+                    raise AssertionError("xprof_det prepare: no rotated_iou kernel in the trace")
+            out["xprof"][what] = rep
+        log(f"[13] xprof_det busy / idle share at B={BATCH}: "
+            + "; ".join(f"{w} {r.get('busy', float('nan')):.4f} / {r.get('idle', float('nan')):.4f} "
+                        f"of {r.get('window_ms', float('nan')):.3f} ms"
+                        for w, r in out["xprof"].items()) + f" [{card}]")
+    out["launches"] = total
+    log(f"[13] kernel launches over the phase: {total}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -2255,6 +2488,7 @@ def main() -> int:
     bake = flow["bake"]
     timed("seg", phase_seg, device, cfg, spec, BATCH, card)
     vis = timed("vis, MGDA, track", phase_vis_mgda_track, device, cfg, spec, card, kd)["launches"]
+    tools = timed("tools", phase_tools, device, card)["launches"]
     log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"
@@ -2262,13 +2496,14 @@ def main() -> int:
     # candidates; the training batch's forced-anchor test; the mean of the
     # periodic entry's two launches (candidates c1 and c2). Launches and
     # errors include late fusion's and the workflow's (phase 10), whose
-    # times are on the [8] and [10] lines; launches also phase 12's.
+    # times are on the [8] and [10] lines; launches also phases 12's and 13's.
     kernels = [{
         "name": "rotated_iou_matrix",
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
-        "launches": predict_launches + late["launches"] + flow["launches"]["matrix"] + vis["matrix"],
+        "launches": (predict_launches + late["launches"] + flow["launches"]["matrix"] + vis["matrix"]
+                     + tools["matrix"]),
         "max_abs_err": max(k["err_mat"], nms["err"], late["err"], flow["map_matrix"]["err"]),
         "ms": nms["ms"],
         "plain_ms": nms["plain_ms"],
@@ -2280,7 +2515,8 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
-        "launches": train["launches"]["pairs"] + flow["launches"]["pairs"] + vis["pairs"],
+        "launches": (train["launches"]["pairs"] + flow["launches"]["pairs"] + vis["pairs"]
+                     + tools["pairs"]),
         "max_abs_err": max(k["err_pairs"], assign["pairs"]["err"], bake["pairs"]["err"]),
         "ms": assign["pairs"]["ms"],
         "plain_ms": assign["pairs"]["plain_ms"],
@@ -2292,7 +2528,8 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:199",
-        "launches": train["launches"]["periodic"] + flow["launches"]["periodic"] + vis["periodic"],
+        "launches": (train["launches"]["periodic"] + flow["launches"]["periodic"] + vis["periodic"]
+                     + tools["periodic"]),
         "max_abs_err": max([k["err_per"]] + [c["err"] for c in assign["periodic"] + bake["periodic"]]),
         "ms": per["ms"],
         "plain_ms": per["plain_ms"],

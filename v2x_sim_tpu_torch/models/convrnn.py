@@ -9,13 +9,15 @@ wrapper's cells ``l{layer}_d{direction}``, and so does the port.
 
 PyTorch needs each conv's input width when it is built, so every cell
 takes ``input_features`` beside ``features``. The JAX GRU cell's
-``sow("diagnostics")`` tap has no counterpart yet: it waits for the
-``diag_v2v`` tool (ROADMAP.md queue 1 item 13).
+``sow("diagnostics")`` tap is :func:`gru_diagnostics`: inside it, each
+GRU step of a model records its gate statistics (``GRU_STATS``); outside
+it, the cell computes none.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple, Union
+import contextlib
+from typing import Any, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -88,6 +90,12 @@ class ConvRNNCell(ConvRNNCellBase):
         return act(same_conv(torch.cat([h, x], dim=-1), self.gate))
 
 
+#: The gate statistics a GRU step records under :func:`gru_diagnostics`,
+#: in order: the update gate's mean and its shares above 0.99 and below
+#: 0.01, the reset gate's mean, the mean |tanh(candidate)|, |h| and |x|.
+GRU_STATS = ("z_mean", "z_sat_hi", "z_sat_lo", "r_mean", "|tanh(cand)|", "|h|", "|x|")
+
+
 class ConvGRUCell(ConvRNNCellBase):
     """GRU step (the cell of V2VNet's rounds): ``gates`` gives (z, r), z
     first; ``candidate`` reads ``[r * h, x]``; h' = (1 - z) h + z tanh(cand)."""
@@ -97,12 +105,42 @@ class ConvGRUCell(ConvRNNCellBase):
         super().__init__(features, input_features, ndim, kernel)
         self.gates = self._conv(2 * features)
         self.candidate = self._conv(features)
+        #: Where :func:`gru_diagnostics` collects this cell's statistics.
+        self.diagnostics: Optional[List[torch.Tensor]] = None
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         zr = torch.sigmoid(same_conv(torch.cat([h, x], dim=-1), self.gates))
         z, r = zr.split(self.features, dim=-1)
         cand = same_conv(torch.cat([r * h, x], dim=-1), self.candidate)
+        if self.diagnostics is not None:
+            self.diagnostics.append(_gru_stats(z, r, cand, h, x))
         return (1.0 - z) * h + z * torch.tanh(cand)
+
+
+@torch.no_grad()
+def _gru_stats(z, r, cand, h, x) -> torch.Tensor:
+    """The (7,) float32 ``GRU_STATS`` of one GRU step."""
+    z = z.float()
+    return torch.stack([
+        z.mean(), (z > 0.99).float().mean(), (z < 0.01).float().mean(), r.float().mean(),
+        torch.tanh(cand).float().abs().mean(), h.float().abs().mean(), x.float().abs().mean(),
+    ])
+
+
+@contextlib.contextmanager
+def gru_diagnostics(model: nn.Module) -> Iterator[List[torch.Tensor]]:
+    """Record the gate statistics of every ConvGRUCell step ``model`` runs
+    inside the block: yields a list that gains one (7,) float32 row of
+    ``GRU_STATS`` a step, in call order (one a round for V2VNet)."""
+    rows: List[torch.Tensor] = []
+    cells = [m for m in model.modules() if isinstance(m, ConvGRUCell)]
+    for cell in cells:
+        cell.diagnostics = rows
+    try:
+        yield rows
+    finally:
+        for cell in cells:
+            cell.diagnostics = None
 
 
 class ConvLSTMCell(ConvRNNCellBase):

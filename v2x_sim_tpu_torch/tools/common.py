@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import os
+import subprocess
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -107,13 +108,35 @@ def resolve_mode(args) -> str:
     return COM_ALIASES[args.com]
 
 
-def device_and_dtype(args) -> Tuple[torch.device, torch.dtype]:
-    """The device (the card, or the CPU with ``--cpu``; raises without a
-    card otherwise) and the activation dtype; turns TF32 off."""
-    device = resolve_device("cpu" if args.cpu else None)
+def tool_device(cpu: bool) -> torch.device:
+    """The card, or the CPU when ``cpu`` (raises without a card
+    otherwise); turns TF32 off."""
+    device = resolve_device("cpu" if cpu else None)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    return device, torch.bfloat16 if args.bf16 else torch.float32
+    return device
+
+
+def device_and_dtype(args) -> Tuple[torch.device, torch.dtype]:
+    """The device (``tool_device(args.cpu)``) and the activation dtype."""
+    return tool_device(args.cpu), torch.bfloat16 if args.bf16 else torch.float32
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_label(device: torch.device) -> str:
+    """What a timing was taken on: ``CPU``, or the (first) card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit`` prints them."""
+    if device.type != "cuda":
+        return "CPU"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def strip_stale_targets(raw: dict, config: Config) -> dict:

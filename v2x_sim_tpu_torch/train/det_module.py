@@ -14,8 +14,9 @@ data parallelism:
     smooth-L1 losses normalized by the positive count, plus
     ``kd_weight`` times the MSE between the student's fused map and the
     frozen teacher's (once teacher weights are loaded), backward,
-    optional global-norm clipping, one Adam step; ``step`` counts the
-    steps taken (JAX's ``TrainState.step``, which checkpoints carry);
+    optional global-norm clipping, one Adam step at a constant or a
+    scheduled learning rate; ``step`` counts the steps taken (JAX's
+    ``TrainState.step``, which checkpoints carry);
     with ``mgda``, one backward per task and their MGDA combination;
   * ``use_vis``: the model's input is the occupancy followed by the
     visibility map over ``OCCUPIED`` (baked ``vis_maps``, else carved on
@@ -31,7 +32,8 @@ the anchor order.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping, Optional, Tuple, Union
+import math
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,6 +55,9 @@ from v2x_sim_tpu_torch.utils.losses import (
     softmax_focal_loss_sum,
 )
 from v2x_sim_tpu_torch.utils.mgda import mgda_grads
+
+#: A constant learning rate, or a schedule: step count -> learning rate.
+LearningRate = Union[float, Callable[[int], float]]
 
 #: Batch keys the module reads: inputs, GT, and targets and visibility
 #: maps baked offline.
@@ -96,7 +101,9 @@ class DetModule:
         decode and the losses run in float32.
       device: None means the CUDA card, and raises when there is none.
       learning_rate: Adam's step size (betas 0.9, 0.999, eps 1e-8: optax's
-        defaults).
+        defaults): a float, or a schedule ``step -> lr`` read at the count
+        of steps taken before each step, as optax's ``scale_by_schedule``
+        reads it (:func:`warmup_cosine_decay`).
       grad_clip: clip gradients to this global norm before Adam, by optax's
         rule; 0 disables.
       width_mult: uniform scale of the STPN stage widths (1.0 = 32..512).
@@ -119,7 +126,7 @@ class DetModule:
         mode: str = "disco",
         compute_dtype: torch.dtype = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
-        learning_rate: float = 1e-3,
+        learning_rate: LearningRate = 1e-3,
         grad_clip: float = 0.0,
         width_mult: float = 1.0,
         kd_weight: float = 0.0,
@@ -156,8 +163,8 @@ class DetModule:
         # vehicle saturates many anchors; off at coarse grids.
         self.peak_window = 3 if config.grid.voxel_size[0] <= 0.5 else 0
         self.grad_clip = grad_clip
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        self.learning_rate = learning_rate
+        self.optimizer = adam(self.model.parameters(), learning_rate)
         #: Optimization steps taken (host-side; checkpoints carry it).
         self.step = 0
 
@@ -373,6 +380,7 @@ class DetModule:
         if self.grad_clip > 0.0:
             clip_by_global_norm_(
                 [p.grad for p in self.model.parameters() if p.grad is not None], self.grad_clip)
+        set_scheduled_lr(self.optimizer, self.learning_rate, self.step)
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
@@ -408,3 +416,39 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torc
     for g in grads:
         g.copy_(torch.where(clip, g / norm * max_norm, g))
     return norm
+
+
+def adam(params: Iterable[torch.nn.Parameter], learning_rate: LearningRate) -> torch.optim.Adam:
+    """Adam with optax's defaults (betas 0.9, 0.999, eps 1e-8), at
+    ``learning_rate`` or, for a schedule, at its step-0 value."""
+    lr = learning_rate(0) if callable(learning_rate) else learning_rate
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def set_scheduled_lr(optimizer: torch.optim.Optimizer, learning_rate: LearningRate,
+                     step: int) -> None:
+    """Before a step: every param group's lr to ``learning_rate(step)``,
+    ``step`` being the count of steps already taken (a no-op for a float)."""
+    if callable(learning_rate):
+        lr = float(learning_rate(step))
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+
+
+def warmup_cosine_decay(peak: float, steps: int) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule(0, peak, warmup, steps, 0.05 *
+    peak)`` written out, with warmup = max(1, min(steps // 10, 200)): a
+    linear rise from 0 over the warmup, then a cosine decay to 5% of the
+    peak at ``steps``, held there after."""
+    warmup = max(1, min(steps // 10, 200))
+    decay = steps - warmup
+    if decay <= 0:
+        raise ValueError(f"the cosine decay needs steps > {warmup}, got {steps}")
+
+    def schedule(step: int) -> float:
+        if step < warmup:
+            return peak * step / warmup
+        t = min(step - warmup, decay)
+        return peak * (0.95 * 0.5 * (1.0 + math.cos(math.pi * t / decay)) + 0.05)
+
+    return schedule

@@ -7,8 +7,9 @@ collaboration mode, without data parallelism:
     into each agent's frame for upperbound);
   * ``train_step``: forward in BatchNorm's training mode, per-pixel
     cross-entropy over the real agents' labeled pixels, backward, one Adam
-    step (no gradient clipping, unlike detection); ``step`` counts the
-    steps taken, which checkpoints carry;
+    step (no gradient clipping, unlike detection) at a constant or a
+    scheduled learning rate; ``step`` counts the steps taken, which
+    checkpoints carry;
   * ``eval_step``: the argmax class map and the batch's confusion matrix;
   * ``init_weights``: fresh weights drawn as flax's default initializers
     draw them (``models/init.py``).
@@ -25,7 +26,13 @@ from v2x_sim_tpu_torch.bridge import model_key_map, state_dict_from_flax
 from v2x_sim_tpu_torch.configs.config import Config
 from v2x_sim_tpu_torch.models.init import init_flax_defaults_
 from v2x_sim_tpu_torch.models.seg.unet import SegModel, SegOutput
-from v2x_sim_tpu_torch.train.det_module import batch_to_device, occupancy_input
+from v2x_sim_tpu_torch.train.det_module import (
+    LearningRate,
+    adam,
+    batch_to_device,
+    occupancy_input,
+    set_scheduled_lr,
+)
 from v2x_sim_tpu_torch.utils.losses import seg_cross_entropy_sum
 from v2x_sim_tpu_torch.utils.seg_metrics import confusion_matrix
 
@@ -43,7 +50,7 @@ class SegModule:
         and the loss are float32.
       device: None means the CUDA card, and raises when there is none.
       learning_rate: Adam's step size (betas 0.9, 0.999, eps 1e-8: optax's
-        defaults).
+        defaults), a float or a schedule ``step -> lr`` (DetModule's).
       width_mult, depth: SegModel's.
     """
 
@@ -53,7 +60,7 @@ class SegModule:
         mode: str = "lowerbound",
         compute_dtype: torch.dtype = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
-        learning_rate: float = 1e-3,
+        learning_rate: LearningRate = 1e-3,
         width_mult: float = 1.0,
         depth: int = 4,
     ):
@@ -64,8 +71,8 @@ class SegModule:
         self.model = SegModel(config, mode, width_mult, depth).to(
             self.device, memory_format=torch.channels_last)
         self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        self.learning_rate = learning_rate
+        self.optimizer = adam(self.model.parameters(), learning_rate)
         #: Optimization steps taken (host-side; checkpoints carry it).
         self.step = 0
 
@@ -125,6 +132,7 @@ class SegModule:
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss(prepared, train=True)
         loss.backward()
+        set_scheduled_lr(self.optimizer, self.learning_rate, self.step)
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
