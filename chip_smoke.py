@@ -121,6 +121,22 @@ Phases, each reported on its own line; any failure exits non-zero:
      with prepare and train; xprof_det's kernel profile and device busy
      and idle shares of train, prepare (the assignment's kernels by name)
      and predict at B=16.
+ 14. Data parallelism and row sharding at Config(), through
+     v2x_sim_tpu_torch/parallel/: (a) two gloo ranks sharing the card
+     (spawned; the kernels built before), each on 8 of 16 scenes: one
+     float64 step of disco, disco + KD, disco MGDA + use_vis and seg disco,
+     each held to the single-process step on the 16 scenes by the parity
+     tests' rules (loss terms rel 1e-5, Adam's first moment 1e-4 of a
+     leaf's max, new params 1e-8 where the gradient is clear, running
+     stats 1e-8), every rank's parameters, buffers and Adam moments
+     bit-identical to rank 0's, K1 pairs and K2 launched by each rank's
+     prepare_batch; the fp32 DP step's scenes/s (two ranks sharing one
+     card: not a scaling rate) beside one process's on the same card and
+     scenes; (c) in the same ranks, the row-sharded
+     5-stage encoder (128 of 256 rows a rank) against the unsharded one
+     and the sharded stem's SGD step against the unsharded (float64,
+     1e-10 of the max); (b) train_det --dp 1 (NCCL) for a step, a
+     checkpoint and a resumed second step, against --dp 0.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -132,8 +148,9 @@ on the main path's operands (lines tagged [A/B]).
 
 Each kernel wrapper's launch count is set to 0 before each path (predict,
 training, every mode's predict, late fusion, KD training, each tool run
-of the workflow, the segmentation phase, each run of phase 12 and each
-tool run of phase 13) and read after it. "[time]" lines give each
+of the workflow, the segmentation phase, each run of phase 12, each
+tool run of phase 13, phase 14's ranks from their start, and its --dp 0
+run) and read after it. "[time]" lines give each
 phase's seconds.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -2420,6 +2437,353 @@ def phase_tools(device, card: str) -> dict:
     return out
 
 
+
+#: Phase 14: data parallelism and row sharding, two gloo ranks sharing the
+#: card. The DP steps run in float64 so that the 2-rank step can be held
+#: to the single-process step by the parity tests' rules.
+DP_RANKS = 2
+DP_SEED = 50
+DP_DEVICE = "cuda:0"
+DP_CASES = (("disco", "disco", {}), ("disco+kd", "disco", {"kd_weight": KD_WEIGHT}),
+            ("mgda+use_vis", "disco", {"mgda": True, "use_vis": True}))
+DP_LR = 1e-3
+DP_LOSS_RTOL = 1e-5  # the loss terms are float32 sums, also in a float64 step
+DP_STATS_TOL = 1e-8  # running stats, float64
+DP_TIMED_STEPS = 3  # fp32 DP steps timed for the rate
+SPATIAL_TOL = 1e-10  # the row-sharded encoder and stem step (float64), relative to the max
+#: Phase 14 (b): train_det --dp 1 (NCCL) against --dp 0.
+DP_TOOL_BATCH = 4
+DP_TOOL_TIMEOUT_S = 300.0  # a --dp run's ranks, and each of their collectives
+
+
+def _dp_record(module, metrics) -> dict:
+    """A task module after a step, on the device: metrics, parameters,
+    floating buffers and Adam's first moment, by name."""
+    named = dict(module.model.named_parameters())
+    return {"metrics": {k: v.detach() for k, v in metrics.items()},
+            "params": {n: p.detach().clone() for n, p in named.items()},
+            "buffers": {n: b.clone() for n, b in module.model.named_buffers() if b.is_floating_point()},
+            "exp_avg": {n: module.optimizer.state[p]["exp_avg"].clone() for n, p in named.items()}}
+
+
+def _same_on_every_rank(record: dict) -> bool:
+    """Whether every tensor of the record is bit-identical to rank 0's."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1).double() for part in record.values() for t in part.values()])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    return bool(torch.equal(flat, ref))
+
+
+def _dp_compare(got: dict, want: dict) -> dict:
+    """The DP step's record against the single-process step's: the largest
+    error of each part, under tests/test_torch_train.py's rules (grads:
+    1e-4 x a leaf's max; Adam: 1e-8 where the gradient is clear of
+    rounding, 2 lr elsewhere). Raises where a rule fails."""
+    gmax = max(g.abs().max().item() for g in want["exp_avg"].values())
+    err = {"loss_rel": 0.0, "mgda_w": 0.0, "grad_rel": 0.0, "param_clear": 0.0, "param": 0.0,
+           "stats": 0.0}
+    for k, w in want["metrics"].items():
+        g, w = got["metrics"][k].item(), w.item()
+        if k.startswith("mgda_w_"):
+            err["mgda_w"] = max(err["mgda_w"], abs(g - w))
+        else:
+            err["loss_rel"] = max(err["loss_rel"], abs(g - w) / max(abs(w), 1e-30))
+    for n, w in want["exp_avg"].items():
+        scale = max(w.abs().max().item(), 1e-6 * gmax)
+        err["grad_rel"] = max(err["grad_rel"], (got["exp_avg"][n] - w).abs().max().item() / scale)
+        clear = w.abs() > 1e-3 * scale
+        d = (got["params"][n] - want["params"][n]).abs()
+        err["param"] = max(err["param"], d.max().item())
+        if clear.any():
+            err["param_clear"] = max(err["param_clear"], d[clear].max().item())
+    for n, w in want["buffers"].items():
+        err["stats"] = max(err["stats"], ((got["buffers"][n] - w).abs() / (w.abs() + 1.0)).max().item())
+    ok = (err["loss_rel"] <= DP_LOSS_RTOL and err["mgda_w"] <= 1e-6 and err["grad_rel"] <= 1e-4
+          and err["param_clear"] <= 1e-8 and err["param"] <= 2 * DP_LR and err["stats"] <= DP_STATS_TOL)
+    if not ok or sorted(got["metrics"]) != sorted(want["metrics"]):
+        raise AssertionError(f"DP step against the single-process step: {err}")
+    return err
+
+
+def _dp_spatial(mesh, cfg, batch, seed: int) -> dict:
+    """Phase 14 (c) on one rank: the row-sharded 5-stage encoder (inference
+    BatchNorm, random running stats) against the unsharded STPNEncoder on
+    scene 0's 6 maps at 256 rows, and one SGD step of the sharded stem
+    against the unsharded one, in float64. Returns the relative errors."""
+    import copy
+
+    import torch
+
+    from v2x_sim_tpu_torch.bridge import random_flax_variables, state_dict_from_flax
+    from v2x_sim_tpu_torch.models.backbone import fold_agents
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+    from v2x_sim_tpu_torch.ops.voxelize import voxelize_batch
+    from v2x_sim_tpu_torch.parallel.spatial import (
+        make_spatial_encoder,
+        make_spatial_stem_train_step,
+        shard_rows,
+    )
+
+    model = DetModel(cfg, "disco")
+    model.load_state_dict(state_dict_from_flax(random_flax_variables(model, seed=seed), "disco"))
+    encoder = model.encoder.to(mesh.device, torch.float64)
+    pts = torch.from_numpy(batch["points"][:1]).to(mesh.device)
+    pmask = torch.from_numpy(batch["point_mask"][:1]).to(mesh.device)
+    x = fold_agents(voxelize_batch(pts, pmask, cfg.grid, torch.float64)).permute(0, 3, 1, 2)
+    x = x.contiguous()
+    out = {}
+    with torch.no_grad():
+        want = encoder(x)
+        got = make_spatial_encoder(mesh, encoder)(shard_rows(x, mesh))
+    out["encoder"] = max((g - shard_rows(w, mesh)).abs().max().item() / w.abs().max().item()
+                         for g, w in zip(got, want))
+    out["rows"] = x.shape[2]
+    sharded, plain = copy.deepcopy(encoder.blocks[0]), copy.deepcopy(encoder.blocks[0])
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    target = torch.randn((x.shape[0], plain.conv1.out_channels) + tuple(x.shape[2:]),
+                         generator=gen, device=mesh.device, dtype=torch.float64)
+    loss = make_spatial_stem_train_step(mesh, sharded, learning_rate=0.1)(
+        shard_rows(x, mesh), shard_rows(target, mesh))
+    ref = ((plain(x, train=True) - target) ** 2).mean()
+    ref.backward()
+    with torch.no_grad():
+        for p in plain.parameters():
+            p.sub_(0.1 * p.grad)
+    out["stem_loss"] = abs(loss.item() - ref.item()) / ref.item()
+    out["stem_state"] = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                            for a, b in zip(sharded.state_dict().values(), plain.state_dict().values())
+                            if b.is_floating_point())
+    return out
+
+
+def _dp_rank(rank: int, world: int, init_method: str, cfg, spec, batch_size: int,
+             device: str) -> dict:
+    """Phase 14 on one of the ranks that share the card over gloo. (a) Each
+    DP case's float64 step on this rank's 8 of the 16 scenes; rank 0 then
+    takes the single-process step on the 16 and holds the DP step to it.
+    The fp32 DP step's time, then rank 0's single-process fp32 step's.
+    (c) The row-sharded encoder and stem step."""
+    import torch
+    import torch.distributed as dist
+
+    from v2x_sim_tpu_torch.bridge import random_flax_variables
+    from v2x_sim_tpu_torch.datasets.synthetic import generate_batch
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+    from v2x_sim_tpu_torch.train.seg_module import SegModule
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(world, rank=rank, init_method=init_method, backend="gloo", device=device)
+    batch = generate_batch(cfg, spec, batch_size, seed=DP_SEED)
+    batch = {k: v for k, v in batch.items() if k != "visible"}
+    local = shard_batch(batch, mesh)
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    def det(mode, opts, dtype, group):
+        kd = opts.get("kd_weight", 0.0) > 0.0
+        module = DetModule(cfg, mode, dtype, mesh.device, learning_rate=DP_LR, process_group=group,
+                           **opts)
+        module.model.to(dtype)
+        model = DetModel(cfg, mode, kd=kd, use_vis=opts.get("use_vis", False))
+        module.load_flax_variables(random_flax_variables(model, seed=DP_SEED))
+        if kd:
+            module.init_teacher_weights(DP_SEED + 1)
+        return module
+
+    def seg(dtype, group):
+        module = SegModule(cfg, "disco", dtype, mesh.device, learning_rate=DP_LR, process_group=group)
+        module.model.to(dtype)
+        module.load_flax_variables(random_flax_variables(module.model, seed=DP_SEED))
+        return module
+
+    makers = {name: (lambda group, m=mode, o=opts: det(m, o, torch.float64, group))
+              for name, mode, opts in DP_CASES}
+    makers["seg"] = lambda group: seg(torch.float64, group)
+    out = {"identical": {}, "errors": {}, "secs": {}}
+    iou_cu.reset_launches()
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        module = make(mesh.data_group)
+        record = _dp_record(module, module.train_step(module.prepare_batch(local)))
+        out["identical"][name] = _same_on_every_rank(record)
+        del module
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:  # the single-process step on the 16 scenes
+            module = make(None)
+            want = _dp_record(module, module.train_step(module.prepare_batch(batch)))
+            del module
+            out["errors"][name] = _dp_compare(record, want)
+            del want
+        del record
+        torch.cuda.empty_cache()
+        dist.barrier()
+        out["secs"][name] = time.perf_counter() - t0
+
+    module = det("disco", {}, torch.float32, mesh.data_group)
+    prepared = module.prepare_batch(local)
+    module.train_step(prepared)
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED_STEPS):
+        metrics = module.train_step(prepared)
+    out["fp32_loss"] = metrics["loss"].item()  # waits for the card
+    out["step_s"] = (time.perf_counter() - t0) / DP_TIMED_STEPS
+    del module, prepared
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:  # one process on the 16 scenes, on the same card, timed the same way
+        module = det("disco", {}, torch.float32, None)
+        prepared = module.prepare_batch(batch)
+        module.train_step(prepared)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            metrics = module.train_step(prepared)
+        out["single_loss"] = metrics["loss"].item()
+        out["single_step_s"] = (time.perf_counter() - t0) / DP_TIMED_STEPS
+        del module, prepared
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["launches"] = {"pairs": iou_cu.rotated_iou_pairs_soa.launches,
+                       "periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches}
+    smesh = make_mesh(world, spatial=world, backend="gloo", device=device)
+    out["spatial"] = _dp_spatial(smesh, cfg, batch, DP_SEED)
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(mesh.device) / 2**30
+                       if mesh.device.type == "cuda" else 0.0)
+    return out
+
+
+def _dp_tool(card: str) -> dict:
+    """Phase 14 (b): train_det --dp 1 (one rank, NCCL) for 2 steps against
+    --dp 0's 2 steps from the same seed, and --dp 1 resumed from its first
+    epoch's checkpoint against its uninterrupted second step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.tools import train_det
+
+    argv = ["--com", "disco", "--batch", str(DP_TOOL_BATCH), "--batches_per_epoch", "1",
+            "--log_every", "1", "--lr", str(DP_LR), "--nepoch", "2"]
+    train_det.DP_TIMEOUT = DP_TOOL_TIMEOUT_S
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        one, dp, res = (os.path.join(tmp, d) for d in ("dp0", "dp1", "resumed"))
+        iou_cu.reset_launches()
+        _, secs0 = _run_tool(train_det, argv + ["--logpath", one], tag="[14]")
+        launches = {"pairs": iou_cu.rotated_iou_pairs_soa.launches,
+                    "periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches}
+        whole, secs1 = _run_tool(train_det, argv + ["--dp", "1", "--logpath", dp], tag="[14]")
+        os.makedirs(res)
+        shutil.copy(os.path.join(dp, "epoch_0"), res)
+        resumed, secs2 = _run_tool(train_det, argv + ["--dp", "1", "--resume", "auto",
+                                                      "--logpath", res], tag="[14]")
+        files = sorted(os.listdir(dp))
+        losses = [[json.loads(ln)["loss"] for ln in open(os.path.join(d, "metrics.jsonl"))]
+                  for d in (one, dp, res)]
+        want, got, again = (torch.load(os.path.join(d, "epoch_1"), map_location="cpu",
+                                       weights_only=True)["model"] for d in (one, dp, res))
+    params = [k for k in want if want[k].is_floating_point() and "running_" not in k]
+    diff = max((got[k].double() - want[k].double()).abs().max().item() for k in params)
+    # Resumed against uninterrupted: equal but where the card's
+    # nondeterministic weight gradients tip an entry's Adam step.
+    moved = torch.cat([(again[k].double() - got[k].double()).abs().flatten() for k in params])
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    loss_rel = [rel(losses[1][0], losses[0][0]), rel(losses[1][-1], losses[0][-1])]
+    resumed_rel = max(rel(a, b) for a, b in zip(losses[2], losses[1][2:]))
+    if ((whole.step, resumed.start_epoch, resumed.start_step, resumed.step) != (2, 1, 1, 2)
+            or files != ["epoch_0", "epoch_1", "log.txt", "metrics.jsonl"]
+            or len(losses[1]) != len(losses[0]) or len(losses[2]) != len(losses[1]) - 2
+            or max(loss_rel) > DP_LOSS_RTOL or resumed_rel > 1e-6
+            or diff > 2 * 2 * DP_LR or moved.max().item() > 2 * DP_LR
+            or (moved > 1e-6).double().mean().item() > 1e-3 or not np.isfinite(losses[1]).all()):
+        raise AssertionError(f"train_det --dp 1: runs {whole} / {resumed}, files {files}, losses "
+                             f"{losses}, parameter difference {diff}, resumed vs uninterrupted "
+                             f"{moved.max().item()}")
+    log(f"[14] (b) train_det --dp 1 (NCCL, cuda:0) at B={DP_TOOL_BATCH}, 2 steps: {secs1:.1f} s; "
+        f"--dp 0: {secs0:.1f} s; loss rel {loss_rel[0]:.2e} (first), {loss_rel[1]:.2e} (second); "
+        f"parameters after 2 steps within {diff:.3e} (bound 4 lr). Resumed from epoch_0 for the "
+        f"second step ({secs2:.1f} s): loss rel {resumed_rel:.2e} to the uninterrupted run's, "
+        f"parameters within {moved.max().item():.3e}, {(moved > 1e-6).double().mean().item():.2e} "
+        f"of them beyond 1e-6 [{card}]")
+    return launches
+
+
+def phase_dp(device, cfg, spec, card: str) -> dict:
+    """Phase 14: data parallelism and row sharding at Config(), TF32 off.
+    (a) Two ranks sharing the card over gloo: one float64 DP step at
+    B=16 (8 a rank) of disco, disco + KD and disco MGDA + use_vis, and of
+    the seg model, each held to the single-process step on the same 16
+    scenes; every rank's parameters, buffers and Adam moments bit-identical;
+    the fp32 DP step's rate beside one process's. (b) train_det --dp 1 on
+    NCCL. (c) The
+    row-sharded encoder and stem step at 2 ranks. Returns the launches."""
+    import tempfile
+
+    import torch
+
+    from v2x_sim_tpu_torch.parallel.mesh import spawn
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as store:
+        ranks = spawn(_dp_rank, DP_RANKS,
+                      (cfg, spec, BATCH, DP_DEVICE if device.type == "cuda" else "cpu"),
+                      store_dir=store, timeout=900)
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    bad = [(i, k) for i, r in enumerate(ranks) for k, same in r["identical"].items() if not same]
+    if bad:
+        raise AssertionError(f"ranks whose state differs from rank 0's after the DP step: {bad}")
+    where = "the card" if device.type == "cuda" else "the CPU"
+    for name, err in r0["errors"].items():
+        log(f"[14] (a) {name}: {DP_RANKS} ranks x {BATCH // DP_RANKS} scenes vs 1 process x "
+            f"{BATCH}, float64, on {where}: "
+            f"loss terms rel {err['loss_rel']:.2e}, mgda_w {err['mgda_w']:.2e}, Adam's first moment "
+            f"{err['grad_rel']:.2e} of a leaf's max, new params {err['param_clear']:.2e} where the "
+            f"gradient is clear ({err['param']:.2e} anywhere), running stats {err['stats']:.2e}; "
+            f"ranks bit-identical; {r0['secs'][name]:.1f} s")
+    step_s = max(r["step_s"] for r in ranks)
+    log(f"[14] (a) fp32 disco DP step at B={BATCH} ({BATCH // DP_RANKS} a rank): "
+        f"{BATCH / step_s:.2f} scenes/s, {DP_RANKS} ranks sharing one card, gloo (not a scaling "
+        f"rate); one process on the same card and scenes, timed the same way: "
+        f"{BATCH / r0['single_step_s']:.2f} scenes/s; loss {r0['fp32_loss']:.4f} vs "
+        f"{r0['single_loss']:.4f}; peak GiB by rank (rank 0 also takes the "
+        f"single-process float64 steps) " + " ".join(f"{r['peak_gib']:.2f}" for r in ranks)
+        + f" [{card}]")
+    sp = r0["spatial"]
+    rows = sp.pop("rows")
+    if max(sp.values()) > SPATIAL_TOL or not all(np.isfinite(list(r["spatial"].values())).all()
+                                                  for r in ranks):
+        raise AssertionError(f"row-sharded encoder / stem step against the unsharded: {sp}")
+    log(f"[14] (c) row-sharded encoder, {DP_RANKS} ranks x {rows // DP_RANKS} of {rows} rows, "
+        f"5 stages, float64: "
+        f"{sp['encoder']:.2e} of each level's max from the unsharded STPNEncoder; stem SGD step: "
+        f"loss rel {sp['stem_loss']:.2e}, state {sp['stem_state']:.2e}; ranks {secs:.1f} s in all")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("pairs", "periodic")}
+    if device.type == "cuda":
+        tool = _dp_tool(card)
+        launches = {k: launches[k] + tool[k] for k in launches}
+        per_rank = len(DP_CASES) + 1  # prepares a rank: the DP cases and the timed fp32 step
+        if any(r["launches"]["periodic"] < 2 * per_rank or r["launches"]["pairs"] < per_rank
+               for r in ranks):
+            raise AssertionError(f"the ranks' K1/K2 launches: {[r['launches'] for r in ranks]}")
+    log(f"[14] kernel launches (both ranks, and the --dp 0 run of (b)): {launches}")
+    return {"launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -2489,6 +2853,7 @@ def main() -> int:
     timed("seg", phase_seg, device, cfg, spec, BATCH, card)
     vis = timed("vis, MGDA, track", phase_vis_mgda_track, device, cfg, spec, card, kd)["launches"]
     tools = timed("tools", phase_tools, device, card)["launches"]
+    dp = timed("dp", phase_dp, device, cfg, spec, card)["launches"]
     log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"
@@ -2496,7 +2861,8 @@ def main() -> int:
     # candidates; the training batch's forced-anchor test; the mean of the
     # periodic entry's two launches (candidates c1 and c2). Launches and
     # errors include late fusion's and the workflow's (phase 10), whose
-    # times are on the [8] and [10] lines; launches also phases 12's and 13's.
+    # times are on the [8] and [10] lines; launches also phases 12's, 13's
+    # and 14's (both ranks').
     kernels = [{
         "name": "rotated_iou_matrix",
         "route": "cuda",
@@ -2516,7 +2882,7 @@ def main() -> int:
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
         "launches": (train["launches"]["pairs"] + flow["launches"]["pairs"] + vis["pairs"]
-                     + tools["pairs"]),
+                     + tools["pairs"] + dp["pairs"]),
         "max_abs_err": max(k["err_pairs"], assign["pairs"]["err"], bake["pairs"]["err"]),
         "ms": assign["pairs"]["ms"],
         "plain_ms": assign["pairs"]["plain_ms"],
@@ -2529,7 +2895,7 @@ def main() -> int:
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:199",
         "launches": (train["launches"]["periodic"] + flow["launches"]["periodic"] + vis["periodic"]
-                     + tools["periodic"]),
+                     + tools["periodic"] + dp["periodic"]),
         "max_abs_err": max([k["err_per"]] + [c["err"] for c in assign["periodic"] + bake["periodic"]]),
         "ms": per["ms"],
         "plain_ms": per["plain_ms"],

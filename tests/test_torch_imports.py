@@ -40,7 +40,8 @@ def test_port_imports_nothing_of_jax():
             "v2x_sim_tpu_torch/train/det_module.py", "v2x_sim_tpu_torch/bridge.py"} <= names
     # Every subpackage is scanned: the tools, the native reader's bindings,
     # the data readers and the evaluation utilities among them.
-    for sub in ("tools", "native", "datasets", "utils", "train", "models", "ops", "tracking"):
+    for sub in ("tools", "native", "datasets", "utils", "train", "models", "ops", "tracking",
+                "parallel"):
         assert any(n.startswith(f"v2x_sim_tpu_torch/{sub}/") for n in names), sub
     assert {"v2x_sim_tpu_torch/tools/train_det.py", "v2x_sim_tpu_torch/tools/test_det.py",
             "v2x_sim_tpu_torch/tools/create_data_det.py", "v2x_sim_tpu_torch/tools/common.py",
@@ -59,7 +60,8 @@ def test_port_imports_nothing_of_jax():
             "v2x_sim_tpu_torch/tools/bench_table_merge.py",
             "v2x_sim_tpu_torch/tools/bench_table_track.py", "v2x_sim_tpu_torch/tools/diag_v2v.py",
             "v2x_sim_tpu_torch/tools/diag_upperbound.py", "v2x_sim_tpu_torch/tools/profile_det.py",
-            "v2x_sim_tpu_torch/tools/xprof_det.py", "v2x_sim_tpu_torch/tools/bench_loader.py"} <= names
+            "v2x_sim_tpu_torch/tools/xprof_det.py", "v2x_sim_tpu_torch/tools/bench_loader.py",
+            "v2x_sim_tpu_torch/parallel/mesh.py", "v2x_sim_tpu_torch/parallel/spatial.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert {k: v for k, v in bad.items() if v} == {}
 

@@ -1,0 +1,133 @@
+"""Multi-process helpers of the port's parallel tests: gloo ranks on the CPU
+and the functions they run.
+
+The ranks are spawned processes that rendezvous through a file store in
+the test's ``tmp_path`` (no ports, so pytest-xdist's workers never
+clash). Each rank runs torch on one thread, and every rendezvous,
+collective and join waits at most ``TIMEOUT_S``: a hung rank fails its
+test instead of stalling the suite. This module imports only numpy, torch
+and the port, so the ranks never import JAX.
+"""
+
+from __future__ import annotations
+
+from datetime import timedelta
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from v2x_sim_tpu_torch.models.backbone import ConvBlock, STPNEncoder
+from v2x_sim_tpu_torch.parallel import spatial
+from v2x_sim_tpu_torch.parallel.mesh import Mesh, average_, make_mesh, shard_batch, spawn
+from v2x_sim_tpu_torch.train.det_module import DetModule
+from v2x_sim_tpu_torch.train.seg_module import SegModule
+
+TIMEOUT_S = 120.0
+
+
+def run(fn, world: int, tmp_path, *args) -> list:
+    """``fn(rank, world, init_method, *args)`` on ``world`` gloo ranks;
+    their results in rank order."""
+    return spawn(fn, world, args, store_dir=str(tmp_path), timeout=TIMEOUT_S)
+
+
+def _mesh(rank: int, world: int, init_method: str, spatial_size: int = 1) -> Mesh:
+    torch.set_num_threads(1)
+    return make_mesh(world, spatial_size, rank=rank, init_method=init_method, device="cpu",
+                     timeout=timedelta(seconds=TIMEOUT_S))
+
+
+def _numpy(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().numpy().copy() for k, v in tensors.items()}
+
+
+def step_record(module, metrics: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A task module after one step: metrics, state_dict, Adam's moments."""
+    named = dict(module.model.named_parameters())
+    return {
+        "metrics": {k: v.item() for k, v in metrics.items()},
+        "state": _numpy(module.model.state_dict()),
+        "exp_avg": _numpy({n: module.optimizer.state[p]["exp_avg"] for n, p in named.items()}),
+        "exp_avg_sq": _numpy({n: module.optimizer.state[p]["exp_avg_sq"]
+                              for n, p in named.items()}),
+    }
+
+
+def det_step(cfg, case: Mapping[str, Any], batch: Mapping[str, np.ndarray],
+             process_group=None) -> Dict[str, Any]:
+    """One float64 ``DetModule`` step of ``case`` (mode, DetModule options,
+    flax weights, optional teacher) on ``batch``."""
+    module = DetModule(cfg, case["mode"], torch.float64, device="cpu",
+                       process_group=process_group, **case["opts"])
+    module.model.double()
+    module.load_flax_variables(case["variables"])
+    if case.get("teacher") is not None:
+        module.load_teacher_flax_variables(case["teacher"])
+    return step_record(module, module.train_step(module.prepare_batch(batch)))
+
+
+def seg_step(cfg, case: Mapping[str, Any], batch: Mapping[str, np.ndarray],
+             process_group=None) -> Dict[str, Any]:
+    """One float64 ``SegModule`` step of ``case`` on ``batch``."""
+    module = SegModule(cfg, case["mode"], torch.float64, device="cpu",
+                       process_group=process_group, **case["opts"])
+    module.model.double()
+    module.load_flax_variables(case["variables"])
+    return step_record(module, module.train_step(module.prepare_batch(batch)))
+
+
+def dp_steps(rank: int, world: int, init_method: str, cfg, det_cases: Mapping[str, Any],
+             seg_cfg, seg_cases: Mapping[str, Any], batch: Mapping[str, np.ndarray],
+             seg_batch: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """Rank function: each case's step on this rank's rows of the global
+    batch, over the data group of a (world, 1) mesh."""
+    mesh = _mesh(rank, world, init_method)
+    out = {name: det_step(cfg, case, shard_batch(batch, mesh), mesh.data_group)
+           for name, case in det_cases.items()}
+    out.update({name: seg_step(seg_cfg, case, shard_batch(seg_batch, mesh), mesh.data_group)
+                for name, case in seg_cases.items()})
+    try:  # the running stats' pmean, given values the ranks do not share
+        average_([torch.full((3,), 1.0 + rank, dtype=torch.float64)], mesh.data_group)
+        out["average_raises"] = False
+    except RuntimeError:
+        out["average_raises"] = True
+    return out
+
+
+def spatial_checks(rank: int, world: int, init_method: str, inputs: Mapping[str, Any]
+                   ) -> Dict[str, Any]:
+    """Rank function over a (1, world) mesh: every row-sharded op of
+    ``parallel/spatial.py`` on this rank's rows of ``inputs``' maps (NCHW
+    float64 unless noted). Returns each output shard."""
+    mesh = _mesh(rank, world, init_method, spatial_size=world)
+    group = mesh.spatial_group
+    rows = lambda key: spatial.shard_rows(torch.from_numpy(inputs[key]), mesh)  # noqa: E731
+    out: Dict[str, Any] = {}
+    out["halo"] = spatial.halo_exchange_rows(rows("x"), group).numpy()
+    w = torch.from_numpy(inputs["w"])
+    out["conv"] = spatial.conv3x3_halo(rows("x"), w, group).numpy()
+    out["conv_s2"] = spatial.conv3x3s2_halo(rows("x"), w, group).numpy()
+
+    # Gradients through the exchange: d/dx and d/dw of sum(c * conv(x)).
+    x = rows("x").requires_grad_(True)
+    wg = w.clone().requires_grad_(True)
+    (spatial.conv3x3_halo(x, wg, group) * rows("cot")).sum().backward()
+    wgrad = wg.grad.clone()
+    torch.distributed.all_reduce(wgrad, group=group)
+    out["grad_x"], out["grad_w"] = x.grad.numpy(), wgrad.numpy()
+
+    encoder = STPNEncoder(inputs["enc_x"].shape[1], inputs["enc_channels"])
+    encoder.load_state_dict(inputs["enc_state"])
+    enc_x = rows("enc_x")
+    with torch.no_grad():
+        out["stem"] = spatial.make_spatial_stem(mesh, encoder.blocks[0])(enc_x).numpy()
+        out["encoder"] = [f.numpy() for f in spatial.make_spatial_encoder(mesh, encoder)(enc_x)]
+
+    block = ConvBlock(inputs["stem_x"].shape[1], inputs["stem_target"].shape[1])
+    block.load_state_dict(inputs["stem_state"])
+    step = spatial.make_spatial_stem_train_step(mesh, block, learning_rate=inputs["lr"])
+    out["train_loss"] = step(rows("stem_x"), rows("stem_target")).item()
+    out["train_state"] = _numpy(block.state_dict())
+    return out
+

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -39,6 +39,7 @@ def iter_batches(
     shuffle: bool = False,
     seed: int = 0,
     workers: int = 4,
+    shard: Tuple[int, int] = (0, 1),
 ):
     """Yield stacked host batches over an indexable frame dataset.
 
@@ -47,14 +48,21 @@ def iter_batches(
 
     ``workers`` > 1 loads the frames of each batch concurrently (order
     preserved by ``Executor.map``); 0 or 1 reads them serially.
+
+    ``shard=(i, n)`` loads only rows ``[i·b/n, (i+1)·b/n)`` of each batch
+    of b frames (data rank i of n), and raises when b does not split.
     """
+    i, n = shard
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
     pool = ThreadPoolExecutor(workers) if workers > 1 else None
     try:
         for start in range(0, len(order), batch_size):
-            idx = [int(i) for i in order[start : start + batch_size]]
+            idx = [int(j) for j in order[start : start + batch_size]]
+            if len(idx) % n:
+                raise ValueError(f"a batch of {len(idx)} frames does not split over {n} ranks")
+            idx = idx[i * len(idx) // n:(i + 1) * len(idx) // n]
             if pool is not None:
                 items = list(pool.map(dataset.__getitem__, idx))
             else:
@@ -105,5 +113,6 @@ class NpzCacheDataset:
         shuffle: bool = False,
         seed: int = 0,
         workers: int = 4,
+        shard: Tuple[int, int] = (0, 1),
     ):
-        yield from iter_batches(self, batch_size, shuffle, seed, workers)
+        yield from iter_batches(self, batch_size, shuffle, seed, workers, shard)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -380,8 +380,10 @@ class V2XSimDataset:
             -1,
         )
 
-    def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0):
-        """Yield stacked batches (host numpy) over the whole index."""
+    def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
+                shard: Tuple[int, int] = (0, 1)):
+        """Yield stacked batches (host numpy) over the whole index; under
+        ``shard=(i, n)`` data rank i's rows of each (``iter_batches``)."""
         from v2x_sim_tpu_torch.datasets.cache import iter_batches
 
-        yield from iter_batches(self, batch_size, shuffle, seed)
+        yield from iter_batches(self, batch_size, shuffle, seed, shard=shard)

@@ -212,11 +212,12 @@ def _render_scene(
 
 
 def generate_batch(
-    config: Config, spec: SyntheticSpec, batch_size: int, seed: int
+    config: Config, spec: SyntheticSpec, batch_size: int, seed: int, rows: slice = slice(None)
 ) -> Dict[str, np.ndarray]:
-    """Stack `batch_size` scenes into a batched Scene pytree."""
+    """Stack `batch_size` scenes into a batched Scene pytree; with `rows`,
+    only those rows of it (each scene drawn from its own seed)."""
     scenes = [
-        generate_scene(config, spec, seed * 10_007 + b) for b in range(batch_size)
+        generate_scene(config, spec, seed * 10_007 + b) for b in range(batch_size)[rows]
     ]
     return {k: np.stack([s[k] for s in scenes]) for k in scenes[0]}
 

@@ -20,7 +20,11 @@ in float32 (float64 for float64 maps) over every folded map, padded
 agents included; the biased variance E[x^2] - E[x]^2 clipped at 0; and
 running stats updated in place as 0.9 * old + 0.1 * batch, with that
 biased variance. (PyTorch's own training BatchNorm would store the
-unbiased variance.)
+unbiased variance.) With a process group (``DetModel.set_process_group``,
+JAX's ``axis_name``), the batch moments E[x] and E[x^2] are averaged over
+the group's ranks before the variance, with the gradient flowing through
+that average, so every rank normalizes by the global batch's statistics
+and stores the same running stats.
 """
 
 from __future__ import annotations
@@ -28,8 +32,11 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from v2x_sim_tpu_torch.parallel.mesh import psum
 
 #: Encoder channel plan per stage (stage 0 is the stride-1 stem).
 STAGE_CHANNELS: Tuple[int, ...] = (32, 64, 128, 256, 512)
@@ -50,19 +57,22 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding)
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False) -> torch.Tensor:
+def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) -> torch.Tensor:
     """BatchNorm of an NCHW map. Inference uses the float32 running stats
     (PyTorch normalizes a bf16 input in float32 and returns bf16);
     training uses the batch statistics with flax's semantics (see the
-    module docstring) and updates the running stats."""
+    module docstring), averaged over ``group`` when one is given, and
+    updates the running stats."""
     if not train:
         return F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
             training=False, eps=bn.eps,
         )
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean(dim=(0, 2, 3))
-    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    mean, msq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+    if group is not None:
+        mean, msq = (psum(torch.stack([mean, msq]), group) / dist.get_world_size(group)).unbind()
+    var = (msq - mean * mean).clamp(min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
         bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
@@ -78,6 +88,11 @@ class ConvBlock(nn.Module):
     stride 1, one pixel shifted at stride 2.
     """
 
+    #: The process group train-mode BatchNorm averages its batch moments
+    #: over (None: this process's batch alone); set through the model's
+    #: ``set_process_group`` (:class:`BatchNormGroup`).
+    process_group = None
+
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
@@ -87,8 +102,20 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """NCHW in, NCHW out."""
-        x = torch.relu(_bn(_conv(x, self.conv1), self.bn1, train))
-        return torch.relu(_bn(_conv(x, self.conv2), self.bn2, train))
+        x = torch.relu(_bn(_conv(x, self.conv1), self.bn1, train, self.process_group))
+        return torch.relu(_bn(_conv(x, self.conv2), self.bn2, train, self.process_group))
+
+
+class BatchNormGroup:
+    """Mixin of the models (``DetModel``, ``SegModel``) whose train-mode
+    BatchNorm can sync over a process group."""
+
+    def set_process_group(self, group) -> None:
+        """Sync the train-mode BatchNorm of every ``ConvBlock`` inside over
+        ``group`` (None: unsynced)."""
+        for m in self.modules():
+            if isinstance(m, ConvBlock):
+                m.process_group = group
 
 
 class STPNEncoder(nn.Module):

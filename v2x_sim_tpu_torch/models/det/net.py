@@ -24,6 +24,7 @@ import torch.nn as nn
 
 from v2x_sim_tpu_torch.configs.config import Config
 from v2x_sim_tpu_torch.models.backbone import (
+    BatchNormGroup,
     ClassificationHead,
     RegressionHead,
     STPNDecoder,
@@ -98,7 +99,7 @@ class DetOutput(NamedTuple):
     fused_feat: Optional[torch.Tensor] = None
 
 
-class DetModel(nn.Module):
+class DetModel(BatchNormGroup, nn.Module):
     """Backbone + (optional) fusion + heads for any collaboration mode.
 
     Args:
@@ -110,6 +111,10 @@ class DetModel(nn.Module):
       use_vis: the input carries D visibility channels after the D
         occupancy ones (DetModule's ``use_vis``): the encoder's first conv
         takes 2·D channels.
+
+    ``set_process_group(group)`` (JAX's ``axis_name``): the group
+    train-mode BatchNorm averages its batch moments over, set by the task
+    module for data parallelism; inference never syncs.
     """
 
     def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0,

@@ -26,7 +26,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from v2x_sim_tpu_torch.configs.config import Config
-from v2x_sim_tpu_torch.models.backbone import ConvBlock, _conv, fold_agents, unfold_agents
+from v2x_sim_tpu_torch.models.backbone import (
+    BatchNormGroup,
+    ConvBlock,
+    _conv,
+    fold_agents,
+    unfold_agents,
+)
 from v2x_sim_tpu_torch.models.det.net import NO_FUSION, build_fusion, check_mode, fuse_agents
 
 UNET_CHANNELS: Tuple[int, ...] = (32, 64, 128, 256)
@@ -47,13 +53,15 @@ class SegOutput(NamedTuple):
     logits: torch.Tensor
 
 
-class SegModel(nn.Module):
+class SegModel(BatchNormGroup, nn.Module):
     """UNet with collaboration fusion at the bottleneck.
 
     Args:
       width_mult: uniform scale of UNET_CHANNELS and the bottleneck, each
         width ``max(8, round(c * width_mult))``.
       depth: down/up stages, 1..4; the bottleneck sits at H / 2^depth.
+
+    ``set_process_group``: as ``DetModel``'s.
     """
 
     def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0,

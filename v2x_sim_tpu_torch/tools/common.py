@@ -163,18 +163,26 @@ def strip_stale_targets(raw: dict, config: Config) -> dict:
 
 def make_batches(
     args, config: Config, split_seed: int = 0, num_batches: int = 8, shuffle: bool = True,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Iterator[dict]:
     """Yield host batches from synthetic scenes, an .npz cache, or a
     nuScenes-format root.
 
     ``num_batches`` and ``split_seed`` apply to every source. Evaluation
     passes shuffle=False so dumped detections stay in temporal order for
-    tracking.
+    tracking. ``shard=(r, n)`` makes and loads only data rank r's rows
+    ``[r·B/n, (r+1)·B/n)`` of each batch of B (``parallel/mesh.py::
+    shard_batch``'s rows), and raises when B does not split over n.
     """
     if args.data == "synthetic":
         spec = SyntheticSpec(points_per_agent=2048 if args.grid == "small" else 8192)
+        r, n = shard
+        if args.batch % n:
+            raise ValueError(f"a batch of {args.batch} scenes does not split over {n} ranks")
+        rows = slice(r * args.batch // n, (r + 1) * args.batch // n)
         for i in range(num_batches):
-            batch = generate_batch(config, spec, args.batch, seed=args.seed + split_seed + i)
+            batch = generate_batch(config, spec, args.batch, seed=args.seed + split_seed + i,
+                                   rows=rows)
             if not args.rsu:
                 # Reference --rsu 0: drop the road-side unit (agent 0).
                 batch["agent_mask"] = batch["agent_mask"].copy()
@@ -186,8 +194,10 @@ def make_batches(
         version = next(d for d in sorted(os.listdir(args.data)) if d.startswith("v1.0"))
         ds = V2XSimDataset(args.data, config, version=version, use_rsu=bool(args.rsu))
         yield from itertools.islice(
-            ds.batches(args.batch, shuffle=shuffle, seed=args.seed + split_seed), num_batches)
+            ds.batches(args.batch, shuffle=shuffle, seed=args.seed + split_seed, shard=shard),
+            num_batches)
     else:
         ds = NpzCacheDataset(args.data)
         yield from itertools.islice(
-            ds.batches(args.batch, shuffle=shuffle, seed=args.seed + split_seed), num_batches)
+            ds.batches(args.batch, shuffle=shuffle, seed=args.seed + split_seed, shard=shard),
+            num_batches)

@@ -16,16 +16,31 @@ thread on their own CUDA stream, overlapping the previous step. Metrics
 are read on the host only every ``--log_every`` steps and at the end of
 each epoch. ``--MGDA`` balances the cls, loc and KD task gradients by
 MGDA (``utils/mgda.py``); ``--use_vis 1`` feeds the visibility maps.
-(``--dp`` waits for ROADMAP.md queue 1 item 12.)
+
+``--dp N`` trains data-parallel on N ranks that this command spawns, one
+CUDA card a rank over NCCL (``--cpu``: N CPU processes over gloo).
+``--batch`` stays the global batch: each rank makes or loads only its
+rows of every batch (``make_batches``' ``shard``, the rows of
+``parallel/mesh.py::shard_batch``), so ``--dp N`` trains on the same
+scenes as ``--dp 0``, and the step is the single-process step on
+the global batch (``DetModule``'s ``process_group``). Rank 0 logs and
+writes the checkpoints; ``--resume`` loads on every rank, then rank 0's
+state is broadcast. It raises when the batch does not split into N, and
+when the host has fewer than N cards without ``--cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
+from datetime import timedelta
 from typing import List, NamedTuple, Optional, Sequence
 
+import torch
+
 from v2x_sim_tpu_torch.datasets.loader import device_prefetch
+from v2x_sim_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT, Mesh, make_mesh, replicate, spawn
 from v2x_sim_tpu_torch.tools.common import (
     add_common_args,
     build_config,
@@ -33,6 +48,7 @@ from v2x_sim_tpu_torch.tools.common import (
     make_batches,
     resolve_mode,
     strip_stale_targets,
+    tool_device,
 )
 from v2x_sim_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -42,6 +58,12 @@ from v2x_sim_tpu_torch.train.checkpoint import (
 )
 from v2x_sim_tpu_torch.train.det_module import BATCH_KEYS, DetModule
 from v2x_sim_tpu_torch.utils.meters import RunLogger, StepTimer
+
+
+#: Seconds a --dp run's ranks may take in all, and that each rendezvous
+#: and collective may wait (None: no limit on the run, and make_mesh's
+#: default wait).
+DP_TIMEOUT: Optional[float] = None
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -59,6 +81,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--MGDA", dest="mgda", action="store_true",
                    help="balance the task gradients by MGDA (the reference's --MGDA)")
     p.add_argument("--batches_per_epoch", type=int, default=8)
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ranks, one card each (0 = one process); --batch is global")
     p.add_argument(
         "--log_every", type=int, default=20,
         help="read metrics on the host every N steps (and at the end of each "
@@ -82,24 +106,69 @@ class TrainRun(NamedTuple):
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     args = parse_args(argv)
-    config = build_config(args)
-    mode = resolve_mode(args)
+    if args.dp:
+        return _spawn_ranks(args)
     device, dtype = device_and_dtype(args)
-    kd_weight = args.kd_weight if args.kd_flag else 0.0
-
     logger = RunLogger(args.logpath)
     try:
-        return _train(args, config, mode, device, dtype, kd_weight, logger)
+        return _train(args, device, dtype, logger)
     finally:
         logger.close()
 
 
-def _train(args, config, mode, device, dtype, kd_weight, logger) -> TrainRun:
+def _spawn_ranks(args) -> TrainRun:
+    """Check the layout, spawn the --dp ranks, return rank 0's run."""
+    if args.batch % args.dp:
+        raise ValueError(f"--batch {args.batch} does not split over --dp {args.dp} ranks")
+    if not args.cpu:
+        tool_device(False)  # raises without a card
+        if torch.cuda.device_count() < args.dp:
+            raise RuntimeError(f"--dp {args.dp} needs {args.dp} CUDA cards, this host has "
+                               f"{torch.cuda.device_count()}; pass --cpu to run on the CPU")
+    with tempfile.TemporaryDirectory() as store:
+        return spawn(_rank_main, args.dp, (args, DP_TIMEOUT), store_dir=store,
+                     timeout=DP_TIMEOUT)[0]
+
+
+def _rank_main(rank: int, world: int, init_method: str, args,
+               timeout: Optional[float]) -> Optional[TrainRun]:
+    """One --dp rank: its mesh, then the training loop on its rows."""
+    if args.cpu:
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    mesh = make_mesh(world, rank=rank, init_method=init_method, device="cpu" if args.cpu else None,
+                     timeout=DEFAULT_TIMEOUT if timeout is None else timedelta(seconds=timeout))
+    _, dtype = device_and_dtype(args)
+    logger = RunLogger(args.logpath) if rank == 0 else _Silent()
+    try:
+        run = _train(args, mesh.device, dtype, logger, mesh)
+    finally:
+        logger.close()
+    return run if rank == 0 else None
+
+
+class _Silent:
+    """The logger of the ranks other than 0."""
+
+    def log(self, msg: str) -> None:
+        pass
+
+    def metrics(self, step: int, values: dict, prefix: str = "") -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _train(args, device, dtype, logger, mesh: Optional[Mesh] = None) -> TrainRun:
+    config = build_config(args)
+    mode = resolve_mode(args)
+    kd_weight = args.kd_weight if args.kd_flag else 0.0
     logger.log(f"train_det mode={mode} grid={config.grid.grid_shape} device={device} args={vars(args)}")
     module = DetModule(
         config, mode, dtype, device, learning_rate=args.lr, grad_clip=args.grad_clip,
         width_mult=args.width_mult, kd_weight=kd_weight, warp_flag=bool(args.warp_flag),
         use_vis=bool(args.use_vis), mgda=args.mgda,
+        process_group=None if mesh is None else mesh.data_group,
     )
     module.init_weights(args.seed)
     if kd_weight > 0.0:
@@ -117,13 +186,17 @@ def _train(args, config, mode, device, dtype, kd_weight, logger) -> TrainRun:
             restore_checkpoint(path, module)
             start_epoch = module.step // args.batches_per_epoch
             logger.log(f"resumed from {path} at epoch {start_epoch} (step {module.step})")
+    if mesh is not None:
+        replicate(module, mesh)
     start_step = module.step
 
     def host_batches(epoch):
         """The epoch's host batches, stale targets dropped, only the keys
-        the module reads (they are uploaded as they are)."""
+        the module reads (they are uploaded as they are); under --dp only
+        this rank's rows of them are made or loaded."""
+        shard = (0, 1) if mesh is None else (mesh.data_index, mesh.shape[0])
         for raw in make_batches(args, config, split_seed=epoch * 1000,
-                                num_batches=args.batches_per_epoch):
+                                num_batches=args.batches_per_epoch, shard=shard):
             raw = strip_stale_targets(raw, config)
             yield {k: v for k, v in raw.items() if k in BATCH_KEYS}
 
@@ -136,7 +209,7 @@ def _train(args, config, mode, device, dtype, kd_weight, logger) -> TrainRun:
             device_prefetch(host_batches(epoch), module.prepare_batch, device=device)
         ):
             metrics = module.train_step(prepared)
-            scenes += prepared["agent_mask"].shape[0]
+            scenes += prepared["agent_mask"].shape[0] * (1 if mesh is None else mesh.shape[0])
             rate = timer.tick()
             if bi % max(1, args.log_every) == 0:
                 vals = {k: float(v) for k, v in metrics.items()}
@@ -150,7 +223,8 @@ def _train(args, config, mode, device, dtype, kd_weight, logger) -> TrainRun:
         logger.metrics(module.step, vals)
         logger.log(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in vals.items())
                    + f" scenes/s={epoch_rates[-1]:.2f}")
-        logger.log(f"saved {save_checkpoint(args.logpath, module, epoch)}")
+        if mesh is None or mesh.rank == 0:
+            logger.log(f"saved {save_checkpoint(args.logpath, module, epoch)}")
     return TrainRun(start_epoch, start_step, module.step, vals, epoch_rates)
 
 

@@ -1,8 +1,8 @@
 """Detection task module: the predict path and the training step.
 
 Port of ``v2x_sim_tpu/train/det_module.py::DetModule`` for every
-collaboration mode, with DiscoNet's KD, visibility input and MGDA, without
-data parallelism:
+collaboration mode, with DiscoNet's KD, visibility input, MGDA and data
+parallelism:
 
   * ``predict``: voxelize the padded points (merged into each agent's
     frame for upperbound), run the model, decode the top-K candidates per
@@ -21,6 +21,13 @@ data parallelism:
   * ``use_vis``: the model's input is the occupancy followed by the
     visibility map over ``OCCUPIED`` (baked ``vis_maps``, else carved on
     the device from the points);
+  * ``process_group`` (JAX's ``axis_name``): each rank of the group steps
+    on its own rows of the global batch (``parallel/mesh.py``). The
+    positive count and the KD element count are summed over the group
+    before they divide, BatchNorm averages its batch moments over it, the
+    gradients (each task's, with MGDA) are summed over it before clipping
+    and Adam, the metrics are summed and the running stats averaged: the
+    step is the single-process step on the global batch;
   * ``init_weights`` / ``init_teacher_weights``: fresh weights drawn as
     flax's default initializers draw them (``models/init.py``).
 
@@ -49,6 +56,7 @@ from v2x_sim_tpu_torch.ops.nms import NMSResult, batched_nms
 from v2x_sim_tpu_torch.ops.postprocess import decode_topk
 from v2x_sim_tpu_torch.ops.visibility import OCCUPIED, visibility_batch
 from v2x_sim_tpu_torch.ops.voxelize import merged_occupancy, voxelize_batch
+from v2x_sim_tpu_torch.parallel.mesh import all_reduce_, average_, psum, sum_metrics
 from v2x_sim_tpu_torch.utils.losses import (
     kd_mse_loss_sum,
     smooth_l1_loss_sparse_sum,
@@ -118,6 +126,8 @@ class DetModule:
         (DetModel's ``use_vis``); the teacher reads no visibility.
       mgda: train by MGDA over the cls, loc and (with a teacher) KD losses
         (:meth:`train_step`).
+      process_group: the data-parallel group (``Mesh.data_group``) the
+        step's sums run over; None steps alone.
     """
 
     def __init__(
@@ -136,6 +146,7 @@ class DetModule:
         v2v_msg_norm: bool = False,
         use_vis: bool = False,
         mgda: bool = False,
+        process_group=None,
     ):
         check_mode(mode)
         if kd_reduce not in ("mean", "pos"):
@@ -156,6 +167,8 @@ class DetModule:
             v2v_msg_norm=v2v_msg_norm, kd=kd_weight > 0.0, use_vis=use_vis,
         ).to(self.device, memory_format=torch.channels_last)
         self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
+        self.process_group = process_group
+        self.model.set_process_group(process_group)
         #: The frozen early-fusion teacher, once its weights are loaded.
         self.teacher: Optional[TeacherModel] = None
         self.anchors = torch.from_numpy(anchor_grid(config)).to(self.device)
@@ -319,7 +332,9 @@ class DetModule:
         prepared targets, with padded agents masked out of both terms, each
         normalized by max(positive count, 1); with ``teacher_feat``, plus
         ``kd_weight`` times the KD MSE of ``out.fused_feat`` against it
-        (padded agents included, as in the JAX package)."""
+        (padded agents included, as in the JAX package). Under a process
+        group the counts are the group's sums, so each term is this rank's
+        share of the global batch's."""
         am = prepared["agent_mask"].to(torch.bool)
         b, a = am.shape
         labels = torch.where(am[:, :, None], prepared["labels"].reshape(b, a, -1), -1)
@@ -329,6 +344,8 @@ class DetModule:
         loc_sum, _ = smooth_l1_loss_sparse_sum(
             out.reg.reshape(b, a, r_cells, -1), prepared["reg_cell"], prepared["reg_lane"],
             prepared["reg_sp_t"], sp_w)
+        if self.process_group is not None:
+            num_pos = psum(num_pos, self.process_group)
         denom = num_pos.clamp(min=1.0)
         cls_loss, loc_loss = cls_sum / denom, loc_sum / denom
         loss = cls_loss + loc_loss
@@ -337,6 +354,8 @@ class DetModule:
             kd_sum, kd_n = kd_mse_loss_sum(out.fused_feat, teacher_feat)
             if self.kd_reduce == "pos":
                 kd_n = denom
+            elif self.process_group is not None:
+                kd_n = psum(kd_n, self.process_group)
             kd = kd_sum / kd_n.clamp(min=1.0)
             loss = loss + self.kd_weight * kd
             metrics["kd_loss"] = kd
@@ -370,13 +389,22 @@ class DetModule:
         loaded; the teacher runs once), each task's gradient zero where its
         loss does not reach; their MGDA combination (utils/mgda.py) becomes
         every parameter's gradient, zeros included, so that Adam advances
-        every moment as optax does. The metrics add ``mgda_w_<task>``."""
+        every moment as optax does. The metrics add ``mgda_w_<task>``.
+
+        Under a process group the gradients (each task's before MGDA) and
+        the metrics are summed over it, and the running stats averaged,
+        before clipping and Adam."""
         self.optimizer.zero_grad(set_to_none=True)
         if self.mgda:
             metrics = self._mgda_backward(prepared)
         else:
             loss, metrics = self.loss(prepared, train=True)
             loss.backward()
+            all_reduce_([p.grad for p in self.model.parameters() if p.grad is not None],
+                        self.process_group)
+            metrics = sum_metrics(metrics, self.process_group)
+        # A no-op in value (BatchNorm synced the moments), kept as JAX's pmean.
+        average_([b for b in self.model.buffers() if b.is_floating_point()], self.process_group)
         if self.grad_clip > 0.0:
             clip_by_global_norm_(
                 [p.grad for p in self.model.parameters() if p.grad is not None], self.grad_clip)
@@ -396,9 +424,11 @@ class DetModule:
             g = torch.autograd.grad(metrics[key], params, retain_graph=i + 1 < len(tasks),
                                     allow_unused=True)
             grads.append([torch.zeros_like(p) if gi is None else gi for p, gi in zip(params, g)])
+            all_reduce_(grads[-1], self.process_group)
         combined, weights = mgda_grads(grads)
         for p, g in zip(params, combined):
             p.grad = g
+        metrics = sum_metrics(metrics, self.process_group)
         metrics.update({f"mgda_w_{key}": weights[i] for i, key in enumerate(tasks)})
         return metrics
 

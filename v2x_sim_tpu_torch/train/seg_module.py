@@ -1,7 +1,7 @@
 """Segmentation task module: the training step and the evaluation step.
 
 Port of ``v2x_sim_tpu/train/seg_module.py::SegModule`` for every
-collaboration mode, without data parallelism:
+collaboration mode, with data parallelism:
 
   * ``prepare_batch``: voxelize the padded points once per batch (merged
     into each agent's frame for upperbound);
@@ -11,6 +11,9 @@ collaboration mode, without data parallelism:
     scheduled learning rate; ``step`` counts the steps taken, which
     checkpoints carry;
   * ``eval_step``: the argmax class map and the batch's confusion matrix;
+  * ``process_group``: as ``DetModule``'s (the labeled-pixel count summed
+    over the group, BatchNorm's moments averaged, gradients and metrics
+    summed, running stats averaged);
   * ``init_weights``: fresh weights drawn as flax's default initializers
     draw them (``models/init.py``).
 """
@@ -26,6 +29,7 @@ from v2x_sim_tpu_torch.bridge import model_key_map, state_dict_from_flax
 from v2x_sim_tpu_torch.configs.config import Config
 from v2x_sim_tpu_torch.models.init import init_flax_defaults_
 from v2x_sim_tpu_torch.models.seg.unet import SegModel, SegOutput
+from v2x_sim_tpu_torch.parallel.mesh import all_reduce_, average_, psum, sum_metrics
 from v2x_sim_tpu_torch.train.det_module import (
     LearningRate,
     adam,
@@ -52,6 +56,8 @@ class SegModule:
       learning_rate: Adam's step size (betas 0.9, 0.999, eps 1e-8: optax's
         defaults), a float or a schedule ``step -> lr`` (DetModule's).
       width_mult, depth: SegModel's.
+      process_group: the data-parallel group the step's sums run over;
+        None steps alone.
     """
 
     def __init__(
@@ -63,6 +69,7 @@ class SegModule:
         learning_rate: LearningRate = 1e-3,
         width_mult: float = 1.0,
         depth: int = 4,
+        process_group=None,
     ):
         self.config = config
         self.mode = mode
@@ -71,6 +78,8 @@ class SegModule:
         self.model = SegModel(config, mode, width_mult, depth).to(
             self.device, memory_format=torch.channels_last)
         self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
+        self.process_group = process_group
+        self.model.set_process_group(process_group)
         self.learning_rate = learning_rate
         self.optimizer = adam(self.model.parameters(), learning_rate)
         #: Optimization steps taken (host-side; checkpoints carry it).
@@ -112,9 +121,12 @@ class SegModule:
 
     def loss_from_output(self, out: SegOutput, prepared: Mapping[str, torch.Tensor]
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Cross-entropy sum over max(labeled pixel count, 1)."""
+        """Cross-entropy sum over max(labeled pixel count, 1), the count
+        summed over the process group."""
         ce_sum, ce_n = seg_cross_entropy_sum(out.logits, self.masked_labels(prepared),
                                              self.config.num_seg_classes)
+        if self.process_group is not None:
+            ce_n = psum(ce_n, self.process_group)
         loss = ce_sum / ce_n.clamp(min=1.0)
         return loss, {"loss": loss}
 
@@ -132,6 +144,10 @@ class SegModule:
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss(prepared, train=True)
         loss.backward()
+        all_reduce_([p.grad for p in self.model.parameters() if p.grad is not None],
+                    self.process_group)
+        metrics = sum_metrics(metrics, self.process_group)
+        average_([b for b in self.model.buffers() if b.is_floating_point()], self.process_group)
         set_scheduled_lr(self.optimizer, self.learning_rate, self.step)
         self.optimizer.step()
         self.step += 1
