@@ -137,6 +137,22 @@ Phases, each reported on its own line; any failure exits non-zero:
      and the sharded stem's SGD step against the unsharded (float64,
      1e-10 of the max); (b) train_det --dp 1 (NCCL) for a step, a
      checkpoint and a resumed second step, against --dp 0.
+ 15. The last host modules and bf16, at Config(): (a) one scene's dense
+     and flat anchor targets (assign_targets_batched(flat=False/True)) on
+     the card against the CPU (K2 twice and K1's pairs at least once a
+     call; labels equal away from the thresholds, targets within 1e-5),
+     and the dense smooth-L1 against the sparse one on the same random
+     predictions (rel 1e-5); (b) one scene's disco logits in bf16 on the
+     card (predict's eval forward, a train-mode forward, seg disco's
+     eval and train-mode forwards) against the CPU's fp32, within 1.25 x
+     the port's own CPU bf16 distance (max and mean), and the bf16 train
+     step's rate and peak (phase 6) beside the rate before F4's BatchNorm
+     fix; (c) a 1-scene x 2-frame nuScenes-format root from the port's
+     writer through create_data_det --targets 1 (K2 twice a frame),
+     train_det (1 step), test_det (K1 for NMS and mAP) and
+     create_data_seg; (d) the card model saved as the reference's
+     {"model_state_dict": ...} .pth and reloaded through
+     train/torch_convert.py: bit-equal logits.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -150,8 +166,8 @@ Each kernel wrapper's launch count is set to 0 before each path (predict,
 training, every mode's predict, late fusion, KD training, each tool run
 of the workflow, the segmentation phase, each run of phase 12, each
 tool run of phase 13, phase 14's ranks from their start, and its --dp 0
-run) and read after it. "[time]" lines give each
-phase's seconds.
+run, each call and tool run of phase 15) and read after it. "[time]"
+lines give each phase's seconds.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -682,7 +698,7 @@ def phase_train(device, cfg, spec, batch_size: int, variables) -> dict:
     cpu.load_flax_variables(variables)
     t0 = time.perf_counter()
     bt = cpu.to_device({key: v[:1] for key, v in batch.items()})
-    ref = cpu.targets_from_gt(bt["gt_boxes"], bt["gt_mask"])
+    ref = cpu.targets_from_gt(bt["gt_boxes"], bt["gt_mask"], flat="sparse")
     cpu_s = time.perf_counter() - t0
     lab_d = labels[:1].cpu()
     thr = torch.tensor([cfg.anchors.neg_iou_threshold, cfg.anchors.pos_iou_threshold])
@@ -2784,6 +2800,354 @@ def phase_dp(device, cfg, spec, card: str) -> dict:
     return {"launches": launches}
 
 
+BF16_FACTOR = 1.25  # card bf16 vs CPU fp32, against the port's CPU bf16 vs CPU fp32
+#: Phase 6's bf16 train step (step only, B=16) with the earlier bf16
+#: BatchNorm that ROADMAP.md's F4 replaced, on an NVIDIA H100 80GB HBM3 at
+#: its 700 W limit.
+BF16_STEP_BEFORE = {"scenes_per_s": 90.65, "peak_gib": 18.16}
+NUSC_FRAMES = 2  # phase 15's nuScenes-format root: 1 scene x 2 frames
+
+
+def _dist(u, v):
+    """(max, mean) of |u - v| in float64."""
+    d = (u.double() - v.double()).abs()
+    return float(d.max()), float(d.mean())
+
+
+#: The bf16 forms phase 15 (b) times against each other: "earlier" is the
+#: folded train-mode BatchNorm, the conv's bias inside the conv and one
+#: bilinear interpolate; "F4 only" swaps in flax's BatchNorm; "final" is
+#: the port as it stands (also the bias after the conv's rounding and the
+#: upsample's rows rounded before its columns).
+BF16_FORMS = ("earlier", "F4 only", "final")
+
+
+def _swap_bf16_forms(form: str):
+    """Point the model modules at ``form``'s bf16 ops (BF16_FORMS);
+    returns a function that restores the port's own."""
+    import torch
+    import torch.nn.functional as F
+
+    from v2x_sim_tpu_torch.models import backbone
+    from v2x_sim_tpu_torch.models.seg import unet
+
+    saved = [(m, n, getattr(m, n)) for m, n in ((backbone, "_bn"), (backbone, "_conv"),
+                                                (backbone, "upsample_bilinear"),
+                                                (unet, "_conv"), (unet, "upsample_bilinear"))]
+    port_bn = backbone._bn
+
+    def folded_bn(x, bn, train=False, group=None):
+        if not train or x.dtype != torch.bfloat16 or group is not None:
+            return port_bn(x, bn, train, group)
+        xf = x.float()
+        mean, msq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        var = (msq - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(backbone.BN_MOMENTUM).add_((1 - backbone.BN_MOMENTUM) * mean)
+            bn.running_var.mul_(backbone.BN_MOMENTUM).add_((1 - backbone.BN_MOMENTUM) * var)
+        inv = bn.weight * torch.rsqrt(var + bn.eps)
+        shift = bn.bias - mean * inv
+        return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+    def fused_conv(x, conv):
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding)
+
+    def one_interpolate(x, size):
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+    if form != "final":
+        for m in (backbone, unet):
+            m._conv, m.upsample_bilinear = fused_conv, one_interpolate
+    if form == "earlier":
+        backbone._bn = folded_bn
+
+    def restore():
+        for m, n, f in saved:
+            setattr(m, n, f)
+    return restore
+
+
+def _bf16_forms_cost(device, cfg, variables, batch, scene_fp32: dict, card: str) -> None:
+    """Phase 15 (b): what F4's BatchNorm and the two bf16 roundings change
+    on the card, in one run: each form's one-scene distance from the CPU's
+    fp32 (disco logits), and its bf16 times at B=16 (disco predict
+    forward, train step, seg disco forward), in the order A B C C B A."""
+    import torch
+
+    from v2x_sim_tpu_torch.models.seg.unet import SegModel
+    from v2x_sim_tpu_torch.bridge import random_flax_variables
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+    from v2x_sim_tpu_torch.train.seg_module import SegModule
+
+    scene = {k: v[:1] for k, v in batch.items()}
+    b = batch["points"].shape[0]
+    seg_variables = random_flax_variables(SegModel(cfg, "disco"), seed=40)
+    times = {form: {"predict": [], "train": [], "seg": []} for form in BF16_FORMS}
+    for form in BF16_FORMS + BF16_FORMS[::-1]:
+        restore = _swap_bf16_forms(form)
+        try:
+            if not times[form]["predict"]:
+                det = DetModule(cfg, "disco", torch.bfloat16, device=device)
+                det.load_flax_variables(variables)
+                bt = det.to_device(scene)
+                occ, am = det.model_input(bt), bt["agent_mask"].to(torch.bool)
+                with torch.no_grad():
+                    got = {"predict logits": det.model(occ, bt["trans"], am).cls_logits,
+                           "train-mode logits": det.model(occ, bt["trans"], am, train=True).cls_logits}
+                line = "; ".join(f"{name} {d[0]:.4f}/{d[1]:.5f}" for name, d in (
+                    (name, _dist(v.float().cpu(), scene_fp32[name])) for name, v in got.items()))
+                log(f"[15] (b) {form} bf16 forms, one scene, card bf16 vs CPU fp32 (max/mean): "
+                    f"{line} [{card}]")
+                del det, bt, occ, got
+            det = DetModule(cfg, "disco", torch.bfloat16, device=device)
+            det.load_flax_variables(variables)
+            prepared = det.prepare_batch(batch)
+            occ, trans = prepared["occupancy"], prepared["trans"]
+            am = prepared["agent_mask"].to(torch.bool)
+            with torch.no_grad():
+                times[form]["predict"].append(time_ms(lambda: det.model(occ, trans, am), 10))
+            times[form]["train"].append(time_ms(lambda: det.train_step(prepared), 5))
+            del det, prepared, occ, trans, am
+            seg = SegModule(cfg, "disco", torch.bfloat16, device=device)
+            seg.load_flax_variables(seg_variables)
+            sp = seg.prepare_batch(batch)
+            with torch.no_grad():
+                times[form]["seg"].append(time_ms(lambda: seg.model(
+                    sp["occupancy"], sp["trans"], sp["agent_mask"].to(torch.bool)), 10))
+            del seg, sp
+            torch.cuda.empty_cache()
+        finally:
+            restore()
+    for form in BF16_FORMS:
+        t = {k: float(np.mean(v)) for k, v in times[form].items()}
+        log(f"[15] (b) {form} bf16 forms at B={b}, disco, CUDA events (mean of 2 passes): predict "
+            f"forward {t['predict']:.3f} ms ({1e3 * b / t['predict']:.2f} scenes/s), train step "
+            f"{t['train']:.3f} ms ({1e3 * b / t['train']:.2f} scenes/s), seg forward "
+            f"{t['seg']:.3f} ms ({1e3 * b / t['seg']:.2f} scenes/s) [{card}]")
+
+
+def _layouts_vs_cpu(device, cfg, batch, card: str) -> dict:
+    """Phase 15 (a): the dense and flat layouts on the card against the
+    CPU for one scene, and the dense loss against the sparse one."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops.anchors import anchor_grid
+    from v2x_sim_tpu_torch.ops.assign import assign_targets_batched
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+    from v2x_sim_tpu_torch.utils.losses import smooth_l1_loss_sparse_sum, smooth_l1_loss_sum
+
+    total = {"matrix": 0, "pairs": 0, "periodic": 0}
+    gt, mask = torch.from_numpy(batch["gt_boxes"][0]), torch.from_numpy(batch["gt_mask"][0])
+    anchors = torch.from_numpy(anchor_grid(cfg))
+    thr = torch.tensor([cfg.anchors.neg_iou_threshold, cfg.anchors.pos_iou_threshold])
+    for flat in (False, True):
+        want = assign_targets_batched(gt, mask, anchors, cfg, flat=flat)
+        iou_cu.reset_launches()
+        got = assign_targets_batched(gt.to(device), mask.to(device), anchors.to(device), cfg,
+                                     flat=flat)
+        torch.cuda.synchronize()
+        launches = _launches()
+        for key in total:
+            total[key] += launches[key]
+        if launches["periodic"] != 2 or launches["pairs"] < 1 or launches["matrix"]:
+            raise AssertionError(f"flat={flat}: launched {launches}: want periodic 2, pairs >= 1")
+        got = [t.cpu() for t in got]
+        near = ((want.best_iou[..., None] - thr).abs() <= NEAR_THRESHOLD).any(-1)
+        differ = got[0] != want.labels
+        if bool((differ & ~near).any()):
+            raise AssertionError(f"flat={flat}: labels differ card vs CPU away from the thresholds")
+        same = ~differ
+        reg_g, reg_w = got[1], want.reg_targets
+        if flat:  # field-major (B, 6, n)
+            reg_g, reg_w = reg_g.transpose(1, 2), reg_w.transpose(1, 2)
+        reg_err = float((reg_g[same] - reg_w[same]).abs().max())
+        iou_err = float((got[3] - want.best_iou).abs().max())
+        if (reg_err > REG_TOL or iou_err > IOU_TOL
+                or not torch.equal(got[2][same], want.reg_mask[same])):
+            raise AssertionError(f"flat={flat}: targets card vs CPU: reg {reg_err:.2e}, best_iou "
+                                 f"{iou_err:.2e}, or reg_mask")
+        log(f"[15] (a) assign_targets_batched(flat={flat}) on the card, one scene of "
+            f"{gt.shape[0]} agents: launches {launches}; {int((want.labels == 1).sum())} positives; "
+            f"vs the CPU: {int(differ.sum())} labels differ (all within {NEAR_THRESHOLD} of a "
+            f"threshold), reg {reg_err:.2e}, best_iou {iou_err:.2e} [{card}]")
+
+    module = DetModule(cfg, "disco", device=device)
+    bt = module.to_device({k: batch[k][:1] for k in ("gt_boxes", "gt_mask")})
+    iou_cu.reset_launches()
+    full = module.targets_from_gt(bt["gt_boxes"], bt["gt_mask"])
+    prep = module.targets(bt)
+    torch.cuda.synchronize()
+    for key, n in _launches().items():
+        total[key] += n
+    if int(prep["overflow"].sum()):
+        raise AssertionError("the scene overflows the sparse capacity: dense and sparse differ")
+    b, a, h, w, k = full.labels.shape
+    gen = torch.Generator(device=device).manual_seed(15)
+    pred = 0.2 * torch.randn((b, a, h, w, k, 6), generator=gen, device=device)
+    dense, dense_n = smooth_l1_loss_sum(pred, full.reg_targets, full.reg_mask)
+    sparse, sparse_n = smooth_l1_loss_sparse_sum(pred.reshape(b, a, h * w, k * 6), prep["reg_cell"],
+                                                 prep["reg_lane"], prep["reg_sp_t"], prep["reg_sp_w"])
+    rel = abs(float(dense) - float(sparse)) / abs(float(sparse))
+    if float(dense_n) != float(sparse_n) or rel > 1e-5:
+        raise AssertionError(f"dense loss {float(dense)} ({float(dense_n)}) vs sparse "
+                             f"{float(sparse)} ({float(sparse_n)})")
+    log(f"[15] (a) dense vs sparse smooth-L1 on the card over {int(dense_n)} positives: "
+        f"{float(dense):.6f} vs {float(sparse):.6f} (rel {rel:.2e}, tol 1e-5) [{card}]")
+    del module, bt, full, prep, pred
+    torch.cuda.empty_cache()
+    return total
+
+
+def _bf16_vs_fp32(device, cfg, variables, batch, card: str, train_rates: dict) -> None:
+    """Phase 15 (b): one scene's bf16 forward on the card against the
+    CPU's fp32, held to 1.25 x the port's own CPU bf16 distance."""
+    import torch
+
+    from v2x_sim_tpu_torch.bridge import random_flax_variables
+    from v2x_sim_tpu_torch.models.seg.unet import SegModel
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+    from v2x_sim_tpu_torch.train.seg_module import SegModule
+
+    scene = {k: v[:1] for k, v in batch.items()}
+    seg_variables = random_flax_variables(SegModel(cfg, "disco"), seed=40)
+    runs = {}
+    for where, dev, dtype in (("cpu fp32", "cpu", torch.float32), ("cpu bf16", "cpu", torch.bfloat16),
+                              ("card bf16", device, torch.bfloat16)):
+        det = DetModule(cfg, "disco", dtype, device=dev)
+        det.load_flax_variables(variables)
+        bt = det.to_device(scene)
+        occ, am = det.model_input(bt), bt["agent_mask"].to(torch.bool)
+        seg = SegModule(cfg, "disco", dtype, device=dev)
+        seg.load_flax_variables(seg_variables)
+        sp = seg.prepare_batch(scene)
+        with torch.no_grad():
+            runs[where] = {
+                "predict logits": det.model(occ, bt["trans"], am).cls_logits,
+                "train-mode logits": det.model(occ, bt["trans"], am, train=True).cls_logits,
+                "seg logits": seg.model(sp["occupancy"], sp["trans"], sp["agent_mask"].to(torch.bool)).logits,
+                "seg train-mode logits": seg.model(sp["occupancy"], sp["trans"],
+                                                   sp["agent_mask"].to(torch.bool), train=True).logits,
+            }
+            runs[where] = {k: v.float().cpu() for k, v in runs[where].items()}
+        del det, seg, bt, occ, sp
+    torch.cuda.empty_cache()
+    for name, ref in runs["cpu fp32"].items():
+        own = _dist(runs["cpu bf16"][name], ref)
+        got = _dist(runs["card bf16"][name], ref)
+        allowed = tuple(BF16_FACTOR * o for o in own)
+        line = (f"{name}: card bf16 vs CPU fp32 {got[0]:.4f}/{got[1]:.5f} (max/mean; allowed "
+                f"{allowed[0]:.4f}/{allowed[1]:.5f} = {BF16_FACTOR} x the CPU bf16's "
+                f"{own[0]:.4f}/{own[1]:.5f})")
+        if not (got[0] <= allowed[0] and got[1] <= allowed[1]):
+            raise AssertionError(f"bf16 on the card, one scene, disco: {line}")
+        log(f"[15] (b) one scene, disco, TF32 off: {line} [{card}]")
+    _bf16_forms_cost(device, cfg, variables, batch, runs["cpu fp32"], card)
+    bf = train_rates["bf16"]
+    log(f"[15] (b) the bf16 train step with F4's BatchNorm (phase 6): "
+        f"{bf['step_scenes_per_s']:.2f} scenes/s step only, peak {bf['peak_gib']:.2f} GiB at "
+        f"B={BATCH}; before the fix {BF16_STEP_BEFORE['scenes_per_s']:.2f} scenes/s, "
+        f"{BF16_STEP_BEFORE['peak_gib']:.2f} GiB (H100 80GB HBM3, 700 W) [{card}]")
+
+
+def _nuscenes_root_tools(cfg, card: str) -> dict:
+    """Phase 15 (c): a nuScenes-format root from the port's writer, then
+    create_data_det, train_det (1 step), test_det and create_data_seg on
+    it."""
+    import tempfile
+
+    import torch
+
+    from v2x_sim_tpu_torch.datasets.nuscenes_writer import write_synthetic_nuscenes
+    from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.tools import create_data_det, create_data_seg, test_det, train_det
+
+    total = {"matrix": 0, "pairs": 0, "periodic": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "nusc")
+        write_synthetic_nuscenes(root, cfg, SyntheticSpec(points_per_agent=8192, max_gt=32),
+                                 num_scenes=1, frames_per_scene=NUSC_FRAMES, seed=15)
+        steps = (
+            ("create_data_det", create_data_det, ["--root", root, "--split", "all", "--targets", "1",
+                                                  "--savepath", os.path.join(tmp, "det")]),
+            ("train_det", train_det, ["--data", root, "--com", "disco", "--batch", str(NUSC_FRAMES),
+                                      "--nepoch", "1", "--batches_per_epoch", "1",
+                                      "--logpath", os.path.join(tmp, "run")]),
+            ("test_det", test_det, ["--data", root, "--com", "disco", "--batch", str(NUSC_FRAMES),
+                                    "--num_batches", "1", "--resume", "auto",
+                                    "--logpath", os.path.join(tmp, "run")]),
+            ("create_data_seg", create_data_seg, ["--root", root, "--split", "all",
+                                                  "--savepath", os.path.join(tmp, "seg")]),
+        )
+        for name, tool, argv in steps:
+            iou_cu.reset_launches()
+            result, secs = _run_tool(tool, argv, tag="[15]")
+            torch.cuda.synchronize()
+            launches = _launches()
+            for key in total:
+                total[key] += launches[key]
+            if name.startswith("create_data"):
+                ok, what = result == NUSC_FRAMES, f"{result} frames"
+                if name == "create_data_det":
+                    ok &= launches["periodic"] == 2 * NUSC_FRAMES and launches["pairs"] >= NUSC_FRAMES
+            elif name == "train_det":
+                loss = float(result.metrics["loss"])
+                ok, what = result.step == 1 and np.isfinite(loss), f"step {result.step}, loss {loss:.4f}"
+                ok &= launches["periodic"] == 2
+            else:
+                what = ", ".join(f"{k} {v:.4f}" for k, v in result.metrics.items()
+                                 if k.startswith("mAP"))
+                ok = launches["matrix"] > 0 and all(np.isfinite(v) for v in result.metrics.values()
+                                                    if isinstance(v, float))
+            if not ok:
+                raise AssertionError(f"{name} on the nuScenes-format root: {what}, launches {launches}")
+            log(f"[15] (c) {name} on a 1 x {NUSC_FRAMES}-frame root of the port's writer: {what}; "
+                f"launches {launches}; {secs:.1f} s [{card}]")
+    return total
+
+
+def _reference_pth(device, cfg, variables, batch, card: str) -> None:
+    """Phase 15 (d): the card model saved as the reference's .pth and
+    reloaded through train/torch_convert.py gives bit-equal logits."""
+    import tempfile
+
+    import torch
+
+    from v2x_sim_tpu_torch.train import torch_convert
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    module = DetModule(cfg, "disco", device=device)
+    module.load_flax_variables(variables)
+    again = DetModule(cfg, "disco", device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reference.pth")
+        torch.save({"model_state_dict": module.model.state_dict(), "epoch": 0}, path)
+        torch_convert.load_reference(again.model, path)
+    bt = module.to_device({k: v[:1] for k, v in batch.items()})
+    occ, am = module.model_input(bt), bt["agent_mask"].to(torch.bool)
+    with torch.no_grad():
+        want = module.model(occ, bt["trans"], am).cls_logits
+        got = again.model(occ, bt["trans"], am).cls_logits
+    if not torch.equal(got, want):
+        raise AssertionError(f"reloaded .pth logits differ by {float((got - want).abs().max()):.3e}")
+    log(f"[15] (d) the card model saved as {{'model_state_dict': ...}} and reloaded through "
+        f"torch_convert.load_reference: one scene's logits bit-equal [{card}]")
+
+
+def phase_bf16_host(device, cfg, variables, batch, card: str, train_rates: dict) -> dict:
+    """Phase 15: the dense and flat anchor-target layouts, bf16 against
+    fp32, a nuScenes-format root of the port's writer through the tools,
+    and the reference's .pth."""
+    launches = _layouts_vs_cpu(device, cfg, batch, card)
+    _bf16_vs_fp32(device, cfg, variables, batch, card, train_rates)
+    for key, n in _nuscenes_root_tools(cfg, card).items():
+        launches[key] += n
+    _reference_pth(device, cfg, variables, batch, card)
+    return {"launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -2854,6 +3218,8 @@ def main() -> int:
     vis = timed("vis, MGDA, track", phase_vis_mgda_track, device, cfg, spec, card, kd)["launches"]
     tools = timed("tools", phase_tools, device, card)["launches"]
     dp = timed("dp", phase_dp, device, cfg, spec, card)["launches"]
+    p15 = timed("bf16, layouts, nuScenes, pth", phase_bf16_host, device, cfg, variables,
+                train["batch"], card, train_rates)["launches"]
     log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"
@@ -2861,15 +3227,15 @@ def main() -> int:
     # candidates; the training batch's forced-anchor test; the mean of the
     # periodic entry's two launches (candidates c1 and c2). Launches and
     # errors include late fusion's and the workflow's (phase 10), whose
-    # times are on the [8] and [10] lines; launches also phases 12's, 13's
-    # and 14's (both ranks').
+    # times are on the [8] and [10] lines; launches also phases 12's, 13's,
+    # 14's (both ranks') and 15's.
     kernels = [{
         "name": "rotated_iou_matrix",
         "route": "cuda",
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
         "launches": (predict_launches + late["launches"] + flow["launches"]["matrix"] + vis["matrix"]
-                     + tools["matrix"]),
+                     + tools["matrix"] + p15["matrix"]),
         "max_abs_err": max(k["err_mat"], nms["err"], late["err"], flow["map_matrix"]["err"]),
         "ms": nms["ms"],
         "plain_ms": nms["plain_ms"],
@@ -2882,7 +3248,7 @@ def main() -> int:
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
         "launches": (train["launches"]["pairs"] + flow["launches"]["pairs"] + vis["pairs"]
-                     + tools["pairs"] + dp["pairs"]),
+                     + tools["pairs"] + dp["pairs"] + p15["pairs"]),
         "max_abs_err": max(k["err_pairs"], assign["pairs"]["err"], bake["pairs"]["err"]),
         "ms": assign["pairs"]["ms"],
         "plain_ms": assign["pairs"]["plain_ms"],
@@ -2895,7 +3261,7 @@ def main() -> int:
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:199",
         "launches": (train["launches"]["periodic"] + flow["launches"]["periodic"] + vis["periodic"]
-                     + tools["periodic"] + dp["periodic"]),
+                     + tools["periodic"] + dp["periodic"] + p15["periodic"]),
         "max_abs_err": max([k["err_per"]] + [c["err"] for c in assign["periodic"] + bake["periodic"]]),
         "ms": per["ms"],
         "plain_ms": per["plain_ms"],

@@ -53,7 +53,7 @@ def _compare(cfg, jcfg, gt, mask):
     want = jax_assign.assign_targets_batched(
         jnp.asarray(gt), jnp.asarray(mask), jnp.asarray(anchor_grid(cfg)), jcfg, flat="sparse")
     got = assign.assign_targets_batched(
-        torch.from_numpy(gt), torch.from_numpy(mask), torch.from_numpy(anchor_grid(cfg)), cfg)
+        torch.from_numpy(gt), torch.from_numpy(mask), torch.from_numpy(anchor_grid(cfg)), cfg, flat="sparse")
     thr = (cfg.anchors.neg_iou_threshold, cfg.anchors.pos_iou_threshold)
     iou = got.iou.numpy()
     near = np.zeros(iou.shape, bool)

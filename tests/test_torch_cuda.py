@@ -232,3 +232,44 @@ def test_device_prefetch_stages_on_a_side_stream(cuda_device):
     for g, h in zip(got, host):
         want = iou_sh.rotated_iou_matrix(torch.from_numpy(h["a"]), torch.from_numpy(h["b"]))
         _assert_matches_plain(g, want, "matrix staged on the prefetch stream")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flat", [False, True], ids=["dense", "flat"])
+def test_dense_and_flat_assignment_on_card(cuda_device, flat):
+    """The dense and flat layouts of ``assign_targets_batched`` on the card
+    (K2 twice, K1's aligned pairs at least once) against the same call on
+    the CPU (the plain versions): labels equal away from the thresholds,
+    targets and IoU within 1e-5."""
+    from v2x_sim_tpu_torch.configs.config import Config, GridConfig
+    from v2x_sim_tpu_torch.ops.anchors import anchor_grid
+    from v2x_sim_tpu_torch.ops.assign import assign_targets_batched
+
+    cfg = Config(grid=GridConfig(voxel_size=(0.5, 0.5, 0.625)))  # 128x128
+    rng = np.random.default_rng(11)
+    gt = _random_boxes(rng, 3 * 10, spread=28.0).reshape(3, 10, 5)
+    gt[..., 2:4] = gt[..., 2:4] * [1.5, 0.9] + [1.5, 0.5]
+    mask = np.ones((3, 10), bool)
+    mask[1, 6:] = False
+    gt[~mask] = 0.0
+    anchors = torch.from_numpy(anchor_grid(cfg))
+    args = (torch.from_numpy(gt), torch.from_numpy(mask))
+    want = assign_targets_batched(*args, anchors, cfg, flat=flat)
+    iou_cu.reset_launches()
+    got = assign_targets_batched(*(t.to(cuda_device) for t in args), anchors.to(cuda_device), cfg,
+                                 flat=flat)
+    torch.cuda.synchronize()
+    assert iou_cu.rotated_iou_pairs_soa_periodic.launches == 2
+    assert iou_cu.rotated_iou_pairs_soa.launches >= 1
+    got = [t.cpu() for t in got]
+    iou = want.best_iou
+    near = ((iou - 0.2).abs() <= 1e-4) | ((iou - 0.4).abs() <= 1e-4)
+    assert bool(((got[0] != want.labels) <= near).all())
+    assert int((want.labels == 1).sum()) > 0
+    same = (got[0] == want.labels).numpy()
+    reg_g, reg_w = got[1].numpy(), want.reg_targets.numpy()
+    if flat:  # field-major (B, 6, n)
+        reg_g, reg_w = reg_g.transpose(0, 2, 1), reg_w.transpose(0, 2, 1)
+    np.testing.assert_allclose(reg_g[same], reg_w[same], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(got[2].numpy()[same], want.reg_mask.numpy()[same])
+    np.testing.assert_allclose(got[3].numpy(), iou.numpy(), atol=1e-5, rtol=0)

@@ -11,7 +11,8 @@
     ``strip_stale_targets``: its targets kept, dropped under a changed
     anchor config; ``prepare_batch`` from them equals the live assignment.
   * ``V2XSimDataset`` and the native ``.pcd.bin`` reader against JAX's on
-    a root written by ``v2x_sim_tpu/datasets/nuscenes_writer.py``.
+    a root written by ``v2x_sim_tpu/datasets/nuscenes_writer.py``, and on
+    one written by the port's ``datasets/nuscenes_writer.py``.
   * The cache's threaded and uncompressed reads reproduce the serial,
     compressed ones.
 """
@@ -38,6 +39,10 @@ from v2x_sim_tpu.tools import create_data_det as jax_create_data_det
 from v2x_sim_tpu_torch.configs.config import Config, GridConfig
 from v2x_sim_tpu_torch.datasets.cache import NpzCacheDataset, save_frame
 from v2x_sim_tpu_torch.datasets.nuscenes import V2XSimDataset
+from v2x_sim_tpu_torch.datasets.nuscenes_writer import (
+    write_synthetic_nuscenes as port_write_synthetic_nuscenes,
+)
+from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec
 from v2x_sim_tpu_torch.native import loader as native
 from v2x_sim_tpu_torch.ops import assign
 from v2x_sim_tpu_torch.tools import create_data_det
@@ -169,12 +174,17 @@ def test_prepare_batch_from_baked_targets_equals_live(caches, baker, reg_tol):
     assert not any(k.startswith("tgt_") for k in module.prepare_batch(raw))
 
 
-@pytest.fixture(scope="module")
-def nusc_root(tmp_path_factory):
-    root = tmp_path_factory.mktemp("nusc")
-    write_synthetic_nuscenes(str(root), _jax_config(NUSC_CFG),
-                             JaxSpec(num_vehicles=5, points_per_agent=512, max_gt=8),
-                             num_scenes=2, frames_per_scene=3, seed=1)
+@pytest.fixture(scope="module", params=["jax", "port"], ids=["jax-writer", "port-writer"])
+def nusc_root(request, tmp_path_factory):
+    """The same scenes written by the JAX package's writer or the port's."""
+    root = tmp_path_factory.mktemp(f"nusc-{request.param}")
+    spec = dict(num_vehicles=5, points_per_agent=512, max_gt=8)
+    if request.param == "jax":
+        write_synthetic_nuscenes(str(root), _jax_config(NUSC_CFG), JaxSpec(**spec),
+                                 num_scenes=2, frames_per_scene=3, seed=1)
+    else:
+        port_write_synthetic_nuscenes(str(root), NUSC_CFG, SyntheticSpec(**spec),
+                                      num_scenes=2, frames_per_scene=3, seed=1)
     return root
 
 

@@ -141,7 +141,8 @@ def f32(raw, variables):
     prep = port.prepare_batch(raw)
     with torch.no_grad():
         _, met = port.loss(prep, train=True)
-    sp = port.targets_from_gt(torch.from_numpy(raw["gt_boxes"]), torch.from_numpy(raw["gt_mask"]))
+    sp = port.targets_from_gt(torch.from_numpy(raw["gt_boxes"]), torch.from_numpy(raw["gt_mask"]),
+                            flat="sparse")
     return {
         "jprep": jax.tree.map(np.asarray, jprep), "jstats": jstats, "jmet": jmet,
         "prep": prep, "met": met, "iou": sp.iou.numpy(),
@@ -294,7 +295,8 @@ def test_bridge_round_trips_both_ways(variables):
 def test_baked_targets_prepare_like_gt_targets(raw, variables):
     port = DetModule(CFG, "disco", device="cpu")
     from_gt = port.prepare_batch(raw)
-    sp = port.targets_from_gt(torch.from_numpy(raw["gt_boxes"]), torch.from_numpy(raw["gt_mask"]))
+    sp = port.targets_from_gt(torch.from_numpy(raw["gt_boxes"]), torch.from_numpy(raw["gt_mask"]),
+                            flat="sparse")
     n = sp.labels.shape[-1]
     lab = sp.labels.numpy()
 

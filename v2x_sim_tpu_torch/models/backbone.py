@@ -13,16 +13,23 @@ Module names follow the reference torch graph, so one flax
 
 Mixed precision follows the JAX package: parameters stay float32 and are
 cast to the activation dtype per op; BatchNorm runs on its float32
-running stats (eps 1e-5) and returns the activation dtype.
+running stats (eps 1e-5) and returns the activation dtype. Two bf16 ops
+round where flax and XLA round: a conv adds its bias after the conv's
+own rounding (:func:`_conv`), and the bilinear upsample resizes rows,
+rounds, then resizes columns (:func:`upsample_bilinear`). Without them
+the bf16 train step's loss terms stand farther from JAX's float32 than
+1.25 x JAX's own bf16 error (``tests/test_torch_bf16_step.py``).
 
 ``train=True`` runs BatchNorm as flax does in training: batch statistics
 in float32 (float64 for float64 maps) over every folded map, padded
 agents included; the biased variance E[x^2] - E[x]^2 clipped at 0; and
 running stats updated in place as 0.9 * old + 0.1 * batch, with that
 biased variance. (PyTorch's own training BatchNorm would store the
-unbiased variance.) With a process group (``DetModel.set_process_group``,
-JAX's ``axis_name``), the batch moments E[x] and E[x^2] are averaged over
-the group's ranks before the variance, with the gradient flowing through
+unbiased variance.) A bf16 map is normalized in flax's form, ``(x -
+mean) * (scale * rsqrt(var + eps)) + bias`` in float32, and rounded to
+bf16 once. With a process group (``DetModel.set_process_group``, JAX's
+``axis_name``), the batch moments E[x] and E[x^2] are averaged over the
+group's ranks before the variance, with the gradient flowing through
 that average, so every rank normalizes by the global batch's statistics
 and stores the same running stats.
 """
@@ -52,9 +59,23 @@ def width_mult(mult: float) -> Tuple[int, ...]:
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv`` applied with its params cast to the activation dtype."""
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding)
+    """``conv`` applied with its params cast to the activation dtype. In
+    bf16 the bias is added to the rounded conv output, as flax adds it."""
+    if conv.bias is None or x.dtype != torch.bfloat16:
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding)
+    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+    return y + conv.bias.to(x.dtype)[:, None, None]
+
+
+def upsample_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of an NCHW map to ``size`` (``jax.image.resize``'s
+    bilinear is ``interpolate(align_corners=False)``). In bf16 rows are
+    resized and rounded before columns, as XLA contracts
+    ``jax.image.resize``'s two weight matrices."""
+    if x.dtype == torch.bfloat16:
+        x = F.interpolate(x, size=(size[0], x.shape[-1]), mode="bilinear", align_corners=False)
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
 
 
 def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) -> torch.Tensor:
@@ -62,7 +83,8 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) ->
     (PyTorch normalizes a bf16 input in float32 and returns bf16);
     training uses the batch statistics with flax's semantics (see the
     module docstring), averaged over ``group`` when one is given, and
-    updates the running stats."""
+    updates the running stats; a bf16 map is normalized in float32 and
+    rounded once, as flax does."""
     if not train:
         return F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
@@ -77,6 +99,9 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) ->
         bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
         bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
     inv = bn.weight * torch.rsqrt(var + bn.eps)
+    if x.dtype == torch.bfloat16:
+        y = (xf - mean[:, None, None]) * inv[:, None, None] + bn.bias[:, None, None]
+        return y.to(x.dtype)
     shift = bn.bias - mean * inv
     return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
@@ -142,8 +167,7 @@ class STPNEncoder(nn.Module):
 class STPNDecoder(nn.Module):
     """Decoder with skip connections back to stage-0 resolution.
 
-    Each stage upsamples bilinearly (``jax.image.resize`` bilinear is
-    ``interpolate(align_corners=False)``) and convolves
+    Each stage upsamples bilinearly (:func:`upsample_bilinear`) and convolves
     ``cat([up, skip])``: the JAX package's ``_SplitConv`` is one
     (3, 3, Ca+Cb, Cout) kernel whose first Ca inputs see the upsampled map.
     """
@@ -160,9 +184,7 @@ class STPNDecoder(nn.Module):
         x = feats[-1]
         for i, block in enumerate(self.blocks):
             skip = feats[-2 - i]
-            x = F.interpolate(
-                x, size=skip.shape[-2:], mode="bilinear", align_corners=False
-            )
+            x = upsample_bilinear(x, skip.shape[-2:])
             x = block(torch.cat([x, skip.to(x.dtype)], dim=1), train)
         return x
 

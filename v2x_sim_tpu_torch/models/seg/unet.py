@@ -32,6 +32,7 @@ from v2x_sim_tpu_torch.models.backbone import (
     _conv,
     fold_agents,
     unfold_agents,
+    upsample_bilinear,
 )
 from v2x_sim_tpu_torch.models.det.net import NO_FUSION, build_fusion, check_mode, fuse_agents
 
@@ -123,7 +124,7 @@ class SegModel(BatchNormGroup, nn.Module):
                train: bool = False) -> SegOutput:
         """Up stages over the skips, deepest first, then the 1x1 head."""
         for up, skip in zip(self.ups, reversed(skips)):
-            x = F.interpolate(x, size=skip.shape[-2:], mode="bilinear", align_corners=False)
+            x = upsample_bilinear(x, skip.shape[-2:])
             x = up(torch.cat([x, skip.to(x.dtype)], dim=1), train)
         logits = _conv(x, self.head).permute(0, 2, 3, 1).float()
         return SegOutput(unfold_agents(logits, num_agents))

@@ -1,8 +1,9 @@
-"""GT -> anchor target assignment in the sparse training layout.
+"""GT -> anchor target assignment.
 
 Port of ``v2x_sim_tpu/ops/assign.py``: ``sparse_cell_capacity``,
-``target_fingerprint``, ``SparseTargets``,
-``assign_targets_batched(flat="sparse")``, and the sparse label wire
+``target_fingerprint``, ``SparseTargets``, ``AnchorTargets``,
+``assign_targets_batched`` in its three layouts (dense, ``flat=True``
+and ``flat="sparse"``), ``assign_targets``, and the sparse label wire
 format of baked caches (``labels_from_sparse_idx``, ``sparse_label_idx``,
 ``label_counts``). For a batch of padded GT sets:
 
@@ -12,19 +13,19 @@ format of baked caches (``labels_from_sparse_idx``, ``sparse_label_idx``,
      of the periodic CUDA entry point per candidate (``ops/cuda/iou_cu.py``);
   3. each GT's best anchor shape at its own cell (the aligned-pairs entry
      point) is forced positive unless some GT already makes it positive;
-  4. labels, the top-Pc positive cells, and regression targets encoded at
-     those cells' K anchors only.
+  4. labels, and regression targets: at every anchor (dense and flat), or
+     at the top-Pc positive cells' K anchors only (sparse, the training
+     path's layout).
 
 The GT lookups are gathers (the JAX package's one-hot einsums are a TPU
 matrix-unit layout), and the forced-anchor test is a scatter-max over the
-B*M forced anchors instead of a (B, n, M) comparison. The dense and
-``flat=True`` layouts are not ported (ROADMAP.md queue 1 item 7).
+B*M forced anchors instead of a (B, n, M) comparison.
 """
 
 from __future__ import annotations
 
 import zlib
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -90,6 +91,24 @@ class SparseTargets(NamedTuple):
     iou: torch.Tensor
 
 
+class AnchorTargets(NamedTuple):
+    """Training targets at every anchor (the dense and flat layouts).
+
+    labels: int32 classification labels {1, 0, -1}: (B, H, W, K) dense,
+      (B, n) flat.
+    reg_targets: float32 encoded deltas, zero where not positive:
+      (B, H, W, K, 6) dense, field-major (B, 6, n) flat.
+    reg_mask: float32, 1.0 where the anchor is positive; the labels' shape.
+    best_iou: float32 each anchor's IoU with its better candidate, forced
+      anchors lifted to the positive threshold; the labels' shape.
+    """
+
+    labels: torch.Tensor
+    reg_targets: torch.Tensor
+    reg_mask: torch.Tensor
+    best_iou: torch.Tensor
+
+
 def nearest_gt(
     gt_boxes: torch.Tensor, gt_mask: torch.Tensor, anchors: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -142,8 +161,8 @@ def assign_targets_batched(
     gt_mask: torch.Tensor,
     anchors: torch.Tensor,
     config: Config,
-    flat: str = "sparse",
-) -> SparseTargets:
+    flat: Union[bool, str] = False,
+) -> Union[AnchorTargets, SparseTargets]:
     """Assign GT boxes to anchors for a whole batch at once.
 
     Args:
@@ -151,12 +170,14 @@ def assign_targets_batched(
       gt_mask: (B, M) validity.
       anchors: (H, W, K, 5) float32 anchor grid (ops.anchors.anchor_grid).
       config: thresholds and grid geometry.
-      flat: only "sparse", the training path's layout.
+      flat: the output layout. False: :class:`AnchorTargets` over the
+        (B, H, W, K) grid; True: :class:`AnchorTargets` with (B, n) labels
+        and field-major (B, 6, n) regression targets; "sparse":
+        :class:`SparseTargets`, regression targets at the top-Pc positive
+        cells only (the training path's layout).
     """
-    if flat != "sparse":
-        raise NotImplementedError(
-            f"flat={flat!r} is not ported yet: ROADMAP.md queue 1 item 7 (dense and flat layouts)"
-        )
+    if flat not in (False, True, "sparse"):
+        raise ValueError(f"flat must be False, True or 'sparse', not {flat!r}")
     h, w, k, _ = anchors.shape
     b, m = gt_boxes.shape[:2]
     n = h * w * k
@@ -198,10 +219,26 @@ def assign_targets_batched(
     best_iou = torch.where(take_forced, torch.full_like(iou, pos_thr), iou)
     best_gt = torch.where(take_forced, forced_gt, best_gt)
 
-    # 4. Labels, the top-Pc positive cells, their K anchors' targets.
+    # 4. Labels and regression targets.
     pos = best_iou >= pos_thr
-    labels = torch.where(
-        pos, 1, torch.where(best_iou < neg_thr, 0, -1)).to(torch.int8)
+    labels = torch.where(pos, 1, torch.where(best_iou < neg_thr, 0, -1))
+    if flat != "sparse":
+        reg_mask = pos.to(dtype)
+        anchors_flat = anchors.reshape(n, 5)
+        matched = torch.gather(gt_boxes, 1, best_gt[..., None].expand(b, n, 5))
+        # Non-positive anchors encode against their own anchor (exact
+        # zeros), so padded GT never reaches the log.
+        own = torch.cat([anchors_flat[:, :4], torch.zeros_like(anchors_flat[:, :1])], dim=-1)
+        reg = encode_boxes(torch.where(pos[..., None], matched, own), anchors_flat) * reg_mask[..., None]
+        labels = labels.to(torch.int32)
+        if flat:
+            return AnchorTargets(labels, reg.transpose(1, 2).contiguous(), reg_mask, best_iou)
+        grid_shape = (b, h, w, k)
+        return AnchorTargets(labels.view(grid_shape), reg.view(grid_shape + (6,)),
+                             reg_mask.view(grid_shape), best_iou.view(grid_shape))
+
+    # The top-Pc positive cells, their K anchors' targets.
+    labels = labels.to(torch.int8)
     pc = sparse_cell_capacity(config)
     cell_any = pos.view(b, h * w, k).any(dim=-1)
     # Positive cells first, each group in index order: the tie order of
@@ -231,6 +268,15 @@ def assign_targets_batched(
     supervised = torch.zeros((b, n), dtype=torch.bool, device=dev).scatter_(1, lanes, sup)
     labels = torch.where((labels == 1) & ~supervised, -1, labels)
     return SparseTargets(labels, cells, wts, reg, overflow, iou)
+
+
+def assign_targets(
+    gt_boxes: torch.Tensor, gt_mask: torch.Tensor, anchors: torch.Tensor, config: Config
+) -> AnchorTargets:
+    """One sample's (M, 5) GT -> dense (H, W, K) :class:`AnchorTargets`
+    (:func:`assign_targets_batched` at B=1)."""
+    out = assign_targets_batched(gt_boxes[None], gt_mask[None], anchors, config)
+    return AnchorTargets(*(t[0] for t in out))
 
 
 def labels_from_sparse_idx(pos_idx: torch.Tensor, ign_idx: torch.Tensor, n: int) -> torch.Tensor:

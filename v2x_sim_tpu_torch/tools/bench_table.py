@@ -205,7 +205,7 @@ def _bake_pool_targets(pool: List[dict], config: Config, device: torch.device) -
         sp = assign_targets_batched(
             torch.as_tensor(np.asarray(raw["gt_boxes"])).to(device).reshape(b * a, m, 5),
             torch.as_tensor(np.asarray(raw["gt_mask"])).to(device).reshape(b * a, m),
-            anchors, config)
+            anchors, config, flat="sparse")
         raw["tgt_cells"] = sp.cells.reshape((b, a) + sp.cells.shape[1:]).to(torch.int32)
         raw["tgt_wts"] = sp.wts.reshape((b, a) + sp.wts.shape[1:]).to(torch.int8)
         raw["tgt_reg"] = sp.reg.reshape((b, a) + sp.reg.shape[1:]).to(torch.bfloat16)

@@ -103,6 +103,7 @@ def add_targets(frame: dict, config, anchors: torch.Tensor, caps: dict) -> dict:
         torch.from_numpy(frame["gt_mask"]).to(dev),
         anchors,
         config,
+        flat="sparse",
     )
     h, w, k, _ = anchors.shape
     if "caps" not in caps:

@@ -7,7 +7,8 @@ written to a temporary name and renamed into place, and read back onto
 the CPU with ``torch.load(weights_only=True)`` (loading moves each tensor
 to the module's device). A module is a ``DetModule`` or a ``SegModule``:
 anything with ``model``, ``optimizer`` and ``step``. The JAX package's
-orbax checkpoints are not read here (that needs JAX).
+orbax checkpoints are not read here (that needs JAX): the root script
+``convert_jax_checkpoint.py`` turns one into this format.
 """
 
 from __future__ import annotations

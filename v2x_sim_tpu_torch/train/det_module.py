@@ -51,7 +51,12 @@ from v2x_sim_tpu_torch.configs.config import Config
 from v2x_sim_tpu_torch.models.det.net import DetModel, DetOutput, TeacherModel, check_mode
 from v2x_sim_tpu_torch.models.init import init_flax_defaults_
 from v2x_sim_tpu_torch.ops.anchors import anchor_grid
-from v2x_sim_tpu_torch.ops.assign import SparseTargets, assign_targets_batched, labels_from_sparse_idx
+from v2x_sim_tpu_torch.ops.assign import (
+    AnchorTargets,
+    SparseTargets,
+    assign_targets_batched,
+    labels_from_sparse_idx,
+)
 from v2x_sim_tpu_torch.ops.nms import NMSResult, batched_nms
 from v2x_sim_tpu_torch.ops.postprocess import decode_topk
 from v2x_sim_tpu_torch.ops.visibility import OCCUPIED, visibility_batch
@@ -272,13 +277,17 @@ class DetModule:
     # Training
     # ------------------------------------------------------------------ #
 
-    def targets_from_gt(self, gt_boxes: torch.Tensor, gt_mask: torch.Tensor) -> SparseTargets:
-        """Sparse anchor assignment of (B, A, M, 5) GT over all B*A
-        agent-scenes at once; every field comes back as (B, A, ...)."""
+    def targets_from_gt(self, gt_boxes: torch.Tensor, gt_mask: torch.Tensor,
+                        flat: Union[bool, str] = False) -> Union[AnchorTargets, SparseTargets]:
+        """Anchor assignment of (B, A, M, 5) GT over all B*A agent-scenes
+        at once, in ``assign_targets_batched``'s ``flat`` layout (dense by
+        default, as in JAX; "sparse" is the training path's); every field
+        comes back as (B, A, ...)."""
         b, a, m, _ = gt_boxes.shape
-        sp = assign_targets_batched(
-            gt_boxes.reshape(b * a, m, 5), gt_mask.reshape(b * a, m), self.anchors, self.config)
-        return SparseTargets(*(t.reshape((b, a) + t.shape[1:]) for t in sp))
+        out = assign_targets_batched(
+            gt_boxes.reshape(b * a, m, 5), gt_mask.reshape(b * a, m), self.anchors, self.config,
+            flat=flat)
+        return type(out)(*(t.reshape((b, a) + t.shape[1:]) for t in out))
 
     @torch.no_grad()
     def prepare_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -311,7 +320,7 @@ class DetModule:
                 bt["tgt_pos_idx"], bt["tgt_ign_idx"], h * w * k)
             cells, reg, wts = bt["tgt_cells"], bt["tgt_reg"], bt["tgt_wts"]
         else:
-            sp = self.targets_from_gt(bt["gt_boxes"], bt["gt_mask"])
+            sp = self.targets_from_gt(bt["gt_boxes"], bt["gt_mask"], flat="sparse")
             labels, cells, reg, wts = sp.labels, sp.cells, sp.reg, sp.wts
             out["overflow"] = sp.overflow
         b, a, pc = cells.shape

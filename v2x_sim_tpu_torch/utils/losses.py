@@ -2,8 +2,9 @@
 
 Port of ``v2x_sim_tpu/utils/losses.py`` (softmax focal, smooth-L1 dense
 and sparse, KD MSE, segmentation cross-entropy). Every ``*_sum`` loss
-returns ``(sum, count)`` so the caller normalizes by a global count. Sums
-are float32 whatever the activation dtype.
+returns ``(sum, count)`` so the caller normalizes by a global count; the
+wrappers without ``_sum`` divide by max(count, 1) (single-process
+semantics). Sums are float32 whatever the activation dtype.
 """
 
 from __future__ import annotations
@@ -101,7 +102,29 @@ def seg_cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor, num_classe
     return (nll * weight).sum(), weight.sum()
 
 
+def _norm(pair: Pair) -> torch.Tensor:
+    """A ``(sum, count)`` pair's sum over max(count, 1)."""
+    total, n = pair
+    return total / n.clamp(min=1.0)
+
+
+def softmax_focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
+                       alpha: float = 0.25) -> torch.Tensor:
+    """softmax_focal_loss_sum over max(positive count, 1)."""
+    return _norm(softmax_focal_loss_sum(logits, labels, gamma, alpha))
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                   delta: float = 1.0) -> torch.Tensor:
+    """smooth_l1_loss_sum over max(positive count, 1)."""
+    return _norm(smooth_l1_loss_sum(pred, target, mask, delta))
+
+
+def kd_mse_loss(student: torch.Tensor, teacher: torch.Tensor) -> torch.Tensor:
+    """kd_mse_loss_sum over the element count."""
+    return _norm(kd_mse_loss_sum(student, teacher))
+
+
 def seg_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     """seg_cross_entropy_sum over max(valid pixel count, 1)."""
-    total, n = seg_cross_entropy_sum(logits, labels, num_classes)
-    return total / n.clamp(min=1.0)
+    return _norm(seg_cross_entropy_sum(logits, labels, num_classes))
