@@ -69,8 +69,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      (the matrix kernel launches for NMS and for 2 thresholds x 6 agents
      of mAP; the mAP equals the CPU's over the same detections within
      1e-6, and over the evaluation's GT jittered); the matrix kernel at
-     mAP's operands (F x 512 x 32) against its plain version, where mAP
-     reads it, and against its bound.
+     mAP's operands (F x 512 x 32) against its plain version at every
+     pair, those with a padded (zero-size) GT box included, and against
+     its bound.
  11. BEV segmentation at full width: SegModel (UNet at depth 4, widths
      32..256, a 512-channel bottleneck at 16x16 where the agents' maps are
      fused) on B=16 synthetic scenes, random weights through the bridge.
@@ -136,7 +137,20 @@ Phases, each reported on its own line; any failure exits non-zero:
      5-stage encoder (128 of 256 rows a rank) against the unsharded one
      and the sharded stem's SGD step against the unsharded (float64,
      1e-10 of the max); (b) train_det --dp 1 (NCCL) for a step, a
-     checkpoint and a resumed second step, against --dp 0.
+     checkpoint and a resumed second step, against --dp 0; (d) the whole
+     model row-sharded on a (data 2, spatial 2) mesh of 4 gloo ranks
+     sharing the card (DetModule/SegModule with process_group and
+     spatial_group; 128 of 256 rows a rank, each rank's prepare_batch on
+     the whole grid): one float64 step of disco, disco + KD and seg disco
+     on 2 of 4 scenes a data rank, each held to the single-process step on
+     the 4 by (a)'s rules, every rank bit-identical; the fp32 sharded
+     step's scenes/s at B=16 (not a scaling rate), each rank's peak
+     memory, and the all-reduces' share of one step timed with a
+     synchronize around each; the sharded predict against the unsharded
+     on the same scenes: in fp32 the gathered heads within 1e-3 and the
+     kept sets counted, in float64 the kept sets equal and the scores
+     within 1e-9; K2 twice and K1's pairs once a sharded prepare, K1's
+     matrix in each sharded predict.
  15. The last host modules and bf16, at Config(): (a) one scene's dense
      and flat anchor targets (assign_targets_batched(flat=False/True)) on
      the card against the CPU (K2 twice and K1's pairs at least once a
@@ -166,7 +180,8 @@ Each kernel wrapper's launch count is set to 0 before each path (predict,
 training, every mode's predict, late fusion, KD training, each tool run
 of the workflow, the segmentation phase, each run of phase 12, each
 tool run of phase 13, phase 14's ranks from their start, and its --dp 0
-run, each call and tool run of phase 15) and read after it. "[time]"
+run, each sharded run of phase 14 (d), each call and tool run of phase
+15) and read after it. "[time]"
 lines give each phase's seconds.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -199,7 +214,7 @@ BATCH = 16
 MAX_BOXES = 128
 NMS_IOU = 0.1
 SCORE_THRESHOLD = 0.3
-IOU_TOL = 1e-4  # kernel vs plain on random pairs (fp32, different FMA contraction)
+IOU_TOL = 1e-4  # kernel vs plain (fp32), as met while nvcc contracted the kernel's sums into FMAs
 #: Where kernel and plain differ by more than IOU_TOL (late fusion's boxes,
 #: far from the origin), the kernel's error against the plain version in
 #: float64 may be at most this multiple of the fp32 plain version's.
@@ -1528,9 +1543,11 @@ def phase_workflow(device, cfg, card: str, train_rates: dict) -> dict:
 
         # K1's matrix entry at mAP's operands: agent 0's detections x GT.
         # The evaluator reads the pairs of valid detections and real GT. A
-        # padded GT box has zero size, and the IoU of a zero-size box with
-        # any box is that box's area over the 1e-8 epsilon in the JAX
-        # package too (the clip keeps the whole box): not compared.
+        # padded GT box has zero size: the clip keeps the detection whole,
+        # and the IoU is its area over the rounding residual of the union,
+        # in the JAX package too (ROADMAP.md's F2). The kernel rounds every
+        # product and sum as the plain version does, so every pair is held,
+        # padded GT included.
         keep = plain_dets["agent_mask"][:, 0]
         take = lambda a: torch.from_numpy(np.ascontiguousarray(a[keep, 0])).to(device)
         det, gt = take(plain_dets["boxes"]), take(plain_dets["gt_boxes"])
@@ -1538,27 +1555,28 @@ def phase_workflow(device, cfg, card: str, train_rates: dict) -> dict:
         g, n, m = det.shape[0], det.shape[1], gt.shape[1]
         got = iou_cu.rotated_iou_matrix(det, gt)
         plain = iou_sh.rotated_iou_matrix(det, gt)
-        err = float((got - plain).abs()[read].max())
-        if not err <= IOU_TOL:
-            raise AssertionError(f"mAP matrix: max |kernel - plain| = {err} > {IOU_TOL} over the "
-                                 f"pairs mAP reads")
-        soft = _check_zeros(got[read], plain[read], "mAP matrix")
-        apart = ((got - plain).abs() > IOU_TOL) & ~read
-        unread = int(apart.sum())
-        if unread:  # one of them, for the record
+        err = float((got - plain).abs().max())
+        apart = (got - plain).abs() > IOU_TOL
+        if apart.any():
             i, j, k = (int(x) for x in torch.nonzero(apart)[0])
-            unread = (f"{unread}, e.g. detection {det[i, j].tolist()} x GT {gt[i, k].tolist()}: "
-                      f"kernel {float(got[i, j, k]):.6g}, plain {float(plain[i, j, k]):.6g}")
+            raise AssertionError(
+                f"mAP matrix: {int(apart.sum())} pairs ({int((apart & read).sum())} that mAP "
+                f"reads) beyond {IOU_TOL}, e.g. detection {det[i, j].tolist()} x GT "
+                f"{gt[i, k].tolist()}: kernel {float(got[i, j, k]):.6g}, plain "
+                f"{float(plain[i, j, k]):.6g}")
+        soft = _check_zeros(got[read], plain[read], "mAP matrix")
+        padded = int((~take(plain_dets["gt_mask"])).sum()) * n
         work = IouWork()
         work.add(det[:, :, None], gt[:, None])
         ms = time_ms(lambda: iou_cu.rotated_iou_matrix(det, gt), iters=50)
         plain_ms = time_ms(lambda: iou_sh.rotated_iou_matrix(det, gt), iters=10)
         bound_ms, bound_by = work.matrix_bound(g, n, m)
         log(f"[10] rotated_iou_matrix {g}x{n}x{m} on mAP's operands (agent 0's detections x "
-            f"GT): max_abs_err={err:.3e} over the {int(read.sum())} pairs of valid detections and "
-            f"real GT that mAP reads, exact zeros equal there but at {soft} pairs with plain IoU < "
-            f"1e-6 (of the other pairs, {unread} differ beyond {IOU_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}), share {bound_ms / ms:.1%}; {work} [{card}]")
+            f"GT): max_abs_err={err:.3e} over all {got.numel()} pairs, the {padded} with a padded "
+            f"GT box included (F2: 0 beyond {IOU_TOL}); exact zeros equal at the "
+            f"{int(read.sum())} pairs that mAP reads but at {soft} with plain IoU < 1e-6; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}), share "
+            f"{bound_ms / ms:.1%}; {work} [{card}]")
         out["map_matrix"] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "shape": (g, n, m)}
     torch.cuda.empty_cache()
@@ -2737,6 +2755,276 @@ def _dp_tool(card: str) -> dict:
     return launches
 
 
+#: Phase 14 (d): whole-model row sharding on a (data 2, spatial 2) mesh of
+#: 4 gloo ranks sharing the card. The float64 steps held to one process run
+#: at B=4: rank 0 also takes the single-process step, and float64 needs
+#: about twice fp32's 23.48 GiB at B=16.
+SPATIAL_RANKS = 4
+SPATIAL_SIZE = 2
+SPATIAL_CHECK_BATCH = 4
+SPATIAL_CASES = (("disco", "disco", {}), ("disco+kd", "disco", {"kd_weight": KD_WEIGHT}))
+
+
+def _timed_all_reduce(sync):
+    """Route torch.distributed.all_reduce through a timer: the host seconds
+    of each call, between a synchronize before and after it, summed as
+    "halo_gather" (the (n, ...) slot buffers of parallel/spatial.py's
+    exchanges and gathers, 5-d or more, forward and backward) or "other"
+    (BatchNorm's moments, the counts, the gradients and the metrics).
+    Returns (totals, restore)."""
+    import torch.distributed as dist
+
+    inner = dist.all_reduce
+    totals = {"halo_gather": 0.0, "other": 0.0, "halo_gather_calls": 0, "other_calls": 0}
+
+    def all_reduce(tensor, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        work = inner(tensor, *args, **kwargs)
+        sync()
+        key = "halo_gather" if tensor.dim() >= 5 else "other"
+        totals[key] += time.perf_counter() - t0
+        totals[key + "_calls"] += 1
+        return work
+
+    dist.all_reduce = all_reduce
+
+    def restore():
+        dist.all_reduce = inner
+
+    return totals, restore
+
+
+def _spatial_rank(rank: int, world: int, init_method: str, cfg, spec, device: str) -> dict:
+    """Phase 14 (d) on one of the 4 ranks of a (data 2, spatial 2) mesh
+    sharing the card over gloo: the row-sharded float64 det (disco, disco
+    + KD) and seg steps on this data rank's 2 of 4 scenes, each held by
+    rank 0 to the single-process step on the 4; the fp32 sharded det step
+    at B=16 (8 scenes a data rank), its time, its peak memory and the
+    all-reduces' share of one more step; the sharded predict against the
+    unsharded one on this data rank's scenes, in fp32 (8) and float64 (2).
+    Kernel launches are counted on the sharded runs only."""
+    import torch
+    import torch.distributed as dist
+
+    from v2x_sim_tpu_torch.bridge import random_flax_variables
+    from v2x_sim_tpu_torch.datasets.synthetic import generate_batch
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from v2x_sim_tpu_torch.parallel.spatial import gather_rows, take_rows
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+    from v2x_sim_tpu_torch.train.seg_module import SegModule
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(world, SPATIAL_SIZE, rank=rank, init_method=init_method, backend="gloo",
+                     device=device)
+    groups = {"process_group": mesh.data_group, "spatial_group": mesh.spatial_group}
+    small, batch = ({k: v for k, v in generate_batch(cfg, spec, b, seed=DP_SEED).items()
+                     if k != "visible"} for b in (SPATIAL_CHECK_BATCH, BATCH))
+    launches = {"pairs": 0, "periodic": 0, "matrix": 0}
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    def count(fn, *args):
+        """fn(*args) on the sharded path, its kernel launches counted."""
+        iou_cu.reset_launches()
+        result = fn(*args)
+        launches["pairs"] += iou_cu.rotated_iou_pairs_soa.launches
+        launches["periodic"] += iou_cu.rotated_iou_pairs_soa_periodic.launches
+        launches["matrix"] += iou_cu.rotated_iou_matrix.launches
+        return result
+
+    def free():
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def det(mode, opts, dtype, **g):
+        kd = opts.get("kd_weight", 0.0) > 0.0
+        module = DetModule(cfg, mode, dtype, mesh.device, learning_rate=DP_LR, **g, **opts)
+        module.model.to(dtype)
+        module.load_flax_variables(random_flax_variables(DetModel(cfg, mode, kd=kd), seed=DP_SEED))
+        if kd:
+            module.init_teacher_weights(DP_SEED + 1)
+        return module
+
+    def seg(dtype, **g):
+        module = SegModule(cfg, "disco", dtype, mesh.device, learning_rate=DP_LR, **g)
+        module.model.to(dtype)
+        module.load_flax_variables(random_flax_variables(module.model, seed=DP_SEED))
+        return module
+
+    makers = {name: (lambda m=mode, o=opts, **g: det(m, o, torch.float64, **g))
+              for name, mode, opts in SPATIAL_CASES}
+    makers["seg"] = lambda **g: seg(torch.float64, **g)
+    out = {"identical": {}, "errors": {}, "secs": {}}
+    local = shard_batch(small, mesh)
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        module = make(**groups)
+        record = _dp_record(module, count(lambda: module.train_step(module.prepare_batch(local))))
+        out["identical"][name] = _same_on_every_rank(record)
+        del module
+        free()
+        dist.barrier()
+        if rank == 0:  # the single-process step on the 4 scenes
+            module = make()
+            want = _dp_record(module, module.train_step(module.prepare_batch(small)))
+            del module
+            out["errors"][name] = _dp_compare(record, want)
+            del want
+        del record
+        free()
+        dist.barrier()
+        out["secs"][name] = time.perf_counter() - t0
+
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    module = det("disco", {}, torch.float32, **groups)
+    local = shard_batch(batch, mesh)
+    prepared = count(module.prepare_batch, local)
+    count(module.train_step, prepared)
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED_STEPS):
+        metrics = count(module.train_step, prepared)
+    out["fp32_loss"] = metrics["loss"].item()  # waits for the card
+    out["step_s"] = (time.perf_counter() - t0) / DP_TIMED_STEPS
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(mesh.device) / 2**30
+                       if mesh.device.type == "cuda" else 0.0)
+    totals, restore = _timed_all_reduce(sync)
+    try:
+        dist.barrier()
+        t0 = time.perf_counter()
+        count(module.train_step, prepared)
+        sync()
+        out["timed_step_s"] = time.perf_counter() - t0
+    finally:
+        restore()
+    out["collectives"] = totals
+    del module, prepared
+    free()
+
+    # Predict, sharded then unsharded on the same scenes and weights. In
+    # fp32 (B=16, 8 scenes a data rank) the sharded heads, gathered, against
+    # the unsharded heads, and the kept sets counted: the random weights
+    # give flat score regions whose exact ties the 3x3 peak filter keeps,
+    # and a one-ulp change of the conv's rounding can break one. In
+    # float64 (B=4) the kept sets must be equal.
+    g = mesh.spatial_group
+
+    def heads(module, scenes, sharded):
+        with torch.inference_mode():
+            bt = module.to_device(scenes)
+            occ = module.model_input(bt)
+            out = module.model(take_rows(occ, g) if sharded else occ, bt["trans"],
+                               bt["agent_mask"].to(torch.bool))
+            if not sharded:
+                return out.cls_logits, out.reg
+            return gather_rows(out.cls_logits, g), gather_rows(out.reg, g)
+
+    out["predict"] = {}
+    for dtype, scenes in ((torch.float32, local), (torch.float64, shard_batch(small, mesh))):
+        sharded = det("disco", {}, dtype, spatial_group=g)
+        got = count(sharded.predict, scenes, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
+        got_heads = heads(sharded, scenes, True)
+        del sharded
+        free()
+        plain = det("disco", {}, dtype)
+        want = plain.predict(scenes, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
+        want_heads = heads(plain, scenes, False)
+        del plain
+        differ, d_scores, agents = [], 0.0, 0
+        for b in range(want.valid.shape[0]):
+            for a in range(want.valid.shape[1]):
+                kg, kw = got.valid[b, a], want.valid[b, a]
+                ok, ds = _same_kept_set(got.boxes[b, a][kg], got.scores[b, a][kg],
+                                        want.boxes[b, a][kw], want.scores[b, a][kw])
+                agents += 1
+                d_scores = max(d_scores, ds)
+                if not ok:
+                    differ.append((b, a))
+        out["predict"][str(dtype).split(".")[-1]] = {
+            "differ": differ, "d_scores": d_scores, "agents": agents,
+            "kept": int(want.valid.sum()),
+            "d_logit": max(float((u - v).abs().max()) for u, v in zip(got_heads, want_heads))}
+        del got, want, got_heads, want_heads
+        free()
+    out["launches"] = launches
+    free()
+    return out
+
+
+def _spatial(device, cfg, spec, card: str) -> dict:
+    """Phase 14 (d): _spatial_rank on 4 ranks sharing the card; checks and
+    logs their records. Returns the sharded runs' launches, all ranks'."""
+    import tempfile
+
+    from v2x_sim_tpu_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as store:
+        ranks = spawn(_spatial_rank, SPATIAL_RANKS,
+                      (cfg, spec, DP_DEVICE if device.type == "cuda" else "cpu"),
+                      store_dir=store, timeout=900)
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    bad = [(i, k) for i, r in enumerate(ranks) for k, same in r["identical"].items() if not same]
+    if bad:
+        raise AssertionError(f"ranks whose state differs from rank 0's after the sharded step: {bad}")
+    shape = f"(data {SPATIAL_RANKS // SPATIAL_SIZE}, spatial {SPATIAL_SIZE})"
+    rows = cfg.grid.bev_shape[0]
+    for name, err in r0["errors"].items():
+        log(f"[14] (d) {name}: {shape} ranks, {SPATIAL_CHECK_BATCH // 2} scenes x "
+            f"{rows // SPATIAL_SIZE} of {rows} rows a rank vs 1 process x {SPATIAL_CHECK_BATCH} "
+            f"scenes, float64: loss terms rel {err['loss_rel']:.2e}, Adam's first moment "
+            f"{err['grad_rel']:.2e} of a leaf's max, new params {err['param_clear']:.2e} where the "
+            f"gradient is clear ({err['param']:.2e} anywhere), running stats {err['stats']:.2e}; "
+            f"4 ranks bit-identical; {r0['secs'][name]:.1f} s")
+    step_s = max(r["step_s"] for r in ranks)
+    coll = r0["collectives"]
+    log(f"[14] (d) fp32 sharded disco step at B={BATCH} ({BATCH // 2} scenes and "
+        f"{rows // SPATIAL_SIZE} rows a rank): {BATCH / step_s:.2f} scenes/s, {SPATIAL_RANKS} "
+        f"ranks sharing one card, gloo (not a scaling rate); loss {r0['fp32_loss']:.4f}; peak "
+        f"GiB by rank " + " ".join(f"{r['peak_gib']:.2f}" for r in ranks) + f"; one more step "
+        f"with a synchronize around each all-reduce, rank 0: {coll['halo_gather']:.3f} s in "
+        f"{coll['halo_gather_calls']} halo and gather all-reduces and {coll['other']:.3f} s in "
+        f"{coll['other_calls']} others of {r0['timed_step_s']:.3f} s "
+        f"({coll['halo_gather'] / r0['timed_step_s']:.1%} and "
+        f"{coll['other'] / r0['timed_step_s']:.1%}) [{card}]")
+    pred = {k: {"differ": [(i, d) for i, r in enumerate(ranks) for d in r["predict"][k]["differ"]],
+                **{q: max(r["predict"][k][q] for r in ranks) for q in ("d_scores", "d_logit")},
+                **{q: sum(r["predict"][k][q] for r in ranks) for q in ("agents", "kept")}}
+            for k in ("float32", "float64")}
+    f32, f64 = pred["float32"], pred["float64"]
+    if (not f32["d_logit"] <= LOGIT_TOL or f64["differ"] or not f64["d_scores"] <= 1e-9
+            or not f64["d_logit"] <= 1e-9):
+        raise AssertionError(f"sharded predict against the unsharded: {pred}")
+    log(f"[14] (d) sharded predict ({MAX_BOXES} candidates, the peak filter and NMS on the "
+        f"gathered heads) against the unsharded on the same scenes and weights. fp32, "
+        f"{BATCH // 2} scenes a data rank: heads within {f32['d_logit']:.2e} (bound "
+        f"{LOGIT_TOL}); kept sets equal at {f32['agents'] - len(f32['differ'])} of "
+        f"{f32['agents']} (rank, agent) pairs"
+        + (f" (not at {f32['differ']}: a tie of the random weights' flat scores broken by "
+           f"rounding)" if f32["differ"] else "") + f", max |d score| of matched boxes "
+        f"{f32['d_scores']:.2e}. float64, {SPATIAL_CHECK_BATCH // 2} scenes a data rank: heads "
+        f"within {f64['d_logit']:.2e}, kept sets equal at all {f64['agents']} pairs "
+        f"({f64['kept']} kept), scores within {f64['d_scores']:.2e}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("pairs", "periodic", "matrix")}
+    prepares = len(SPATIAL_CASES) + 1  # a rank's sharded prepares: the float64 cases, the fp32
+    if device.type == "cuda" and any(
+            r["launches"]["periodic"] < 2 * prepares or r["launches"]["pairs"] < prepares
+            or r["launches"]["matrix"] < 2 for r in ranks):
+        raise AssertionError(f"the sharded ranks' K1/K2 launches: {[r['launches'] for r in ranks]}")
+    log(f"[14] (d) kernel launches on the sharded path (all 4 ranks): {launches}; ranks "
+        f"{secs:.1f} s in all")
+    return launches
+
+
 def phase_dp(device, cfg, spec, card: str) -> dict:
     """Phase 14: data parallelism and row sharding at Config(), TF32 off.
     (a) Two ranks sharing the card over gloo: one float64 DP step at
@@ -2797,6 +3085,9 @@ def phase_dp(device, cfg, spec, card: str) -> dict:
                for r in ranks):
             raise AssertionError(f"the ranks' K1/K2 launches: {[r['launches'] for r in ranks]}")
     log(f"[14] kernel launches (both ranks, and the --dp 0 run of (b)): {launches}")
+    sharded = _spatial(device, cfg, spec, card)
+    launches = {"matrix": sharded["matrix"],
+                **{k: launches[k] + sharded[k] for k in ("pairs", "periodic")}}
     return {"launches": launches}
 
 
@@ -2832,8 +3123,7 @@ def _swap_bf16_forms(form: str):
     from v2x_sim_tpu_torch.models.seg import unet
 
     saved = [(m, n, getattr(m, n)) for m, n in ((backbone, "_bn"), (backbone, "_conv"),
-                                                (backbone, "upsample_bilinear"),
-                                                (unet, "_conv"), (unet, "upsample_bilinear"))]
+                                                (backbone, "upsample_bilinear"), (unet, "_conv"))]
     port_bn = backbone._bn
 
     def folded_bn(x, bn, train=False, group=None):
@@ -2857,8 +3147,8 @@ def _swap_bf16_forms(form: str):
         return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
 
     if form != "final":
-        for m in (backbone, unet):
-            m._conv, m.upsample_bilinear = fused_conv, one_interpolate
+        backbone._conv = unet._conv = fused_conv
+        backbone.upsample_bilinear = one_interpolate  # the seg decoder's too (upsample_like)
     if form == "earlier":
         backbone._bn = folded_bn
 
@@ -3235,7 +3525,7 @@ def main() -> int:
         "source": source,
         "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
         "launches": (predict_launches + late["launches"] + flow["launches"]["matrix"] + vis["matrix"]
-                     + tools["matrix"] + p15["matrix"]),
+                     + tools["matrix"] + dp["matrix"] + p15["matrix"]),
         "max_abs_err": max(k["err_mat"], nms["err"], late["err"], flow["map_matrix"]["err"]),
         "ms": nms["ms"],
         "plain_ms": nms["plain_ms"],

@@ -114,9 +114,10 @@ def test_periodic_kernel_matches_plain_on_card(cuda_device):
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card(cuda_device):
-    """Both entry points of csrc/rotated_iou.cu against the plain version.
-    atol 1e-4: the kernel's FMA contraction rounds differently from
-    PyTorch's separate ops (measured max ~6e-6 on the H100)."""
+    """Both entry points of csrc/rotated_iou.cu against the plain version,
+    atol 1e-4 (the bound the kernel met while nvcc contracted its sums into
+    FMAs, measured max ~6e-6 on the H100; it now rounds each product as
+    the plain version does)."""
     rng = np.random.default_rng(4)
     n = 1 << 16
     a = torch.from_numpy(_random_boxes(rng, n)).to(cuda_device)
@@ -191,6 +192,40 @@ def test_matrix_kernel_clustered_on_card(cuda_device):
     cut = iou_sh.culled(a[:, :, None], b[:, None])
     assert 0.3 < float(cut.float().mean()) < 1.0 and bool((want > 0).any())
     _assert_matches_plain(got, want, "clustered matrix")
+
+
+@pytest.mark.gpu
+def test_matrix_kernel_zero_size_columns_on_card(cuda_device):
+    """mAP's shape of operands (detections x GT) with padded, all-zero GT
+    columns. Against a zero-size box the clip keeps the other box whole,
+    and the IoU is its area over the rounding residual of the union
+    (ROADMAP.md's F2). The kernel rounds every product and sum as the
+    plain version does, so every pair, the padded columns included, is
+    held within 1e-4 (the count beyond it is printed: 0 of
+    131,072 on the H100); so are the aligned-pairs and periodic entries
+    on the same boxes."""
+    rng = np.random.default_rng(12)
+    g, n, m = 8, 512, 32
+    a = _random_boxes(rng, g * n, spread=32.0).reshape(g, n, 5)
+    b = _random_boxes(rng, g * m, spread=32.0).reshape(g, m, 5)
+    padded = rng.random((g, m)) < 0.6
+    b[padded] = 0.0
+    ta, tb = torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device)
+    got = iou_cu.rotated_iou_matrix(ta, tb)
+    want = iou_sh.rotated_iou_matrix(ta, tb)
+    torch.cuda.synchronize()
+    cols = torch.from_numpy(padded).to(cuda_device)[:, None, :].expand(g, n, m)
+    apart = (got - want).abs() > 1e-4
+    print(f"pairs beyond 1e-4: {int(apart.sum())} of {apart.numel()}, "
+          f"{int(apart[cols].sum())} of the {int(cols.sum())} with a zero-size column")
+    assert float(want[cols].min()) > 1e3  # area / residual: the F2 regime
+    assert not bool(apart.any())
+    # The aligned-pairs and periodic entries share the corners and the union.
+    pa, pb = ta[:, :m].reshape(-1, 5), tb.reshape(-1, 5)
+    got = iou_cu.rotated_iou_pairs_soa(pa.T.contiguous(), pb.T.contiguous())
+    torch.testing.assert_close(got, iou_sh.rotated_iou(pa, pb), atol=1e-4, rtol=0)
+    got = iou_cu.rotated_iou_pairs_soa_periodic(pa[:m].T.contiguous(), pb.T.contiguous())
+    torch.testing.assert_close(got, iou_sh.rotated_iou(pa[:m].repeat(g, 1), pb), atol=1e-4, rtol=0)
 
 
 @pytest.mark.gpu

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from v2x_sim_tpu_torch.models.backbone import ConvBlock, STPNEncoder
+from v2x_sim_tpu_torch.models.det.net import DetModel
+from v2x_sim_tpu_torch.models.seg.unet import SegModel
 from v2x_sim_tpu_torch.parallel import spatial
 from v2x_sim_tpu_torch.parallel.mesh import Mesh, average_, make_mesh, shard_batch, spawn
 from v2x_sim_tpu_torch.train.det_module import DetModule
@@ -55,11 +57,11 @@ def step_record(module, metrics: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def det_step(cfg, case: Mapping[str, Any], batch: Mapping[str, np.ndarray],
-             process_group=None) -> Dict[str, Any]:
+             process_group=None, spatial_group=None) -> Dict[str, Any]:
     """One float64 ``DetModule`` step of ``case`` (mode, DetModule options,
     flax weights, optional teacher) on ``batch``."""
     module = DetModule(cfg, case["mode"], torch.float64, device="cpu",
-                       process_group=process_group, **case["opts"])
+                       process_group=process_group, spatial_group=spatial_group, **case["opts"])
     module.model.double()
     module.load_flax_variables(case["variables"])
     if case.get("teacher") is not None:
@@ -68,10 +70,10 @@ def det_step(cfg, case: Mapping[str, Any], batch: Mapping[str, np.ndarray],
 
 
 def seg_step(cfg, case: Mapping[str, Any], batch: Mapping[str, np.ndarray],
-             process_group=None) -> Dict[str, Any]:
+             process_group=None, spatial_group=None) -> Dict[str, Any]:
     """One float64 ``SegModule`` step of ``case`` on ``batch``."""
     module = SegModule(cfg, case["mode"], torch.float64, device="cpu",
-                       process_group=process_group, **case["opts"])
+                       process_group=process_group, spatial_group=spatial_group, **case["opts"])
     module.model.double()
     module.load_flax_variables(case["variables"])
     return step_record(module, module.train_step(module.prepare_batch(batch)))
@@ -131,3 +133,78 @@ def spatial_checks(rank: int, world: int, init_method: str, inputs: Mapping[str,
     out["train_state"] = _numpy(block.state_dict())
     return out
 
+
+
+def _rows_model(model, state, occ, trans, mask, dtype=torch.float32, train: bool = False):
+    """A model on this rank's rows of ``occ`` (B, A, H, W, D): its output
+    rows, as numpy float32 (float64 for a float64 model)."""
+    model.load_state_dict(state, strict=True)
+    model.to(dtype if dtype != torch.bfloat16 else torch.float32)
+    occ = spatial.take_rows(torch.from_numpy(occ).to(dtype), model.spatial_group)
+    with torch.no_grad():
+        out = model(occ, torch.from_numpy(trans), torch.from_numpy(mask), train=train)
+    return [t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy() for t in out
+            if t is not None]
+
+
+def spatial_model_checks(rank: int, world: int, init_method: str, inputs: Mapping[str, Any]
+                         ) -> Dict[str, Any]:
+    """Rank function over a (1, world) mesh: the channel-parallel conv and
+    its float64 gradients, the sharded upsample, and the row-sharded
+    ``DetModel``/``SegModel`` forwards of ``inputs``' cases. Returns each
+    rank's outputs (for the row-sharded ones, its rows)."""
+    mesh = _mesh(rank, world, init_method, spatial_size=world)
+    g = mesh.spatial_group
+    out: Dict[str, Any] = {}
+
+    x, w = torch.from_numpy(inputs["cp_x"]), torch.from_numpy(inputs["cp_w"])
+    cs = x.shape[1] // world
+    part = slice(rank * cs, (rank + 1) * cs)
+    out["cp"] = spatial.conv3x3_channel_parallel(x[:, part], w[:, part], g).numpy()
+    x64 = x.double()[:, part].clone().requires_grad_(True)
+    w64 = w.double()[:, part].clone().requires_grad_(True)
+    y = spatial.conv3x3_channel_parallel(x64, w64, g)
+    # Every rank takes the same loss of the replicated output: / n.
+    ((y * torch.from_numpy(inputs["cp_cot"])).sum() / world).backward()
+    out["cp_grad_x"], out["cp_grad_w"] = x64.grad.numpy(), w64.grad.numpy()
+
+    for key in ("up", "up_bf16"):
+        up = torch.from_numpy(inputs["up"])
+        up = up.to(torch.bfloat16) if key == "up_bf16" else up
+        got = spatial.upsample_bilinear_halo(spatial.take_rows(up, g), g)
+        out[key] = got.float().numpy() if key == "up_bf16" else got.numpy()
+
+    for name, case in inputs["models"].items():
+        if case.get("world", world) != world:
+            continue
+        cfg = case["cfg"]
+        if case["kind"] == "seg":
+            model = SegModel(cfg, case["mode"], case["width"], case["depth"], spatial_group=g)
+        else:
+            model = DetModel(cfg, case["mode"], case["width"], fusion_layer=case["layer"],
+                             spatial_group=g, **case.get("kw", {}))
+        out[name] = _rows_model(model, case["state"], case["occ"], case["trans"], case["mask"],
+                                case["dtype"], case.get("train", False))
+    return out
+
+
+def spatial_train_checks(rank: int, world: int, init_method: str, cfg, det_cases, seg_cfg,
+                         seg_cases, batch: Mapping[str, np.ndarray], predict: Mapping[str, Any]
+                         ) -> Dict[str, Any]:
+    """Rank function over a (world / 2, 2) mesh: each case's float64 step on
+    this data rank's scenes of ``batch`` with the rows sharded over the
+    spatial group, and ``predict``'s float64 DetModule.predict on them."""
+    mesh = _mesh(rank, world, init_method, spatial_size=2)
+    local = shard_batch(batch, mesh)
+    groups = {"process_group": mesh.data_group, "spatial_group": mesh.spatial_group}
+    out = {name: det_step(cfg, case, local, **groups) for name, case in det_cases.items()}
+    out.update({name: seg_step(seg_cfg, case, local, **groups)
+                for name, case in seg_cases.items()})
+    module = DetModule(cfg, predict["mode"], torch.float64, device="cpu",
+                       spatial_group=mesh.spatial_group, **predict["opts"])
+    module.model.double()
+    module.load_flax_variables(predict["variables"])
+    module.peak_window = predict["peak_window"]
+    res = module.predict(local, max_boxes=predict["max_boxes"])
+    out["predict"] = _numpy(res._asdict())
+    return out

@@ -57,6 +57,19 @@
 // Built without --use_fast_math: parity with the plain version needs the
 // precise sinf/cosf and IEEE division.
 //
+// Rounding. Every product that feeds a sum (the corners, the box areas,
+// the clip's side tests, crossings and their points, the shoelace and the
+// union) is written with __fmul_rn / __fadd_rn / __fsub_rn, which nvcc
+// never contracts into FMAs, so each rounds on its own, in the plain
+// version's order, and the kernel gives the plain version's values. Two
+// places need it. Against a zero-size box (padded GT) the clip keeps the
+// other box whole, inter is its shoelace area, the union l*w - inter is
+// a few ulps, and the IoU inter / max(union, 1e-8) is that residual's
+// reciprocal: an FMA in the corners, the shoelace or the union changes it
+// by orders of magnitude. And where two boxes only touch, the clip leaves
+// a degenerate polygon whose shoelace is rounding noise of ~1e-5 of the
+// union: an FMA in the clip makes it 0 on one side and not on the other.
+//
 // Op count (each fp32 add/sub/mul/div/abs/compare/select or integer
 // popc/and/add/compare = 1; ops/cuda/iou_cu.py holds these numbers, and
 // chip_smoke.py counts a launch's work from its data with them):
@@ -106,7 +119,9 @@ struct Quad {
   float x[4], y[4], area;
 };
 
-// Corners CCW from front-left, as the plain version's box_corners.
+// Corners CCW from front-left, as the plain version's box_corners, each
+// product and sum rounded on its own as there (no FMA contraction; see
+// "Rounding" in the header).
 __device__ __forceinline__ Quad make_quad(float x, float y, float l, float w, float yaw) {
   Quad q;
   const float c = cosf(yaw), s = sinf(yaw);
@@ -115,10 +130,10 @@ __device__ __forceinline__ Quad make_quad(float x, float y, float l, float w, fl
   const float ly[4] = {hy, hy, -hy, -hy};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    q.x[i] = c * lx[i] - s * ly[i] + x;
-    q.y[i] = s * lx[i] + c * ly[i] + y;
+    q.x[i] = __fadd_rn(__fsub_rn(__fmul_rn(c, lx[i]), __fmul_rn(s, ly[i])), x);
+    q.y[i] = __fadd_rn(__fadd_rn(__fmul_rn(s, lx[i]), __fmul_rn(c, ly[i])), y);
   }
-  q.area = l * w;
+  q.area = __fmul_rn(l, w);
   return q;
 }
 
@@ -146,7 +161,8 @@ __device__ __forceinline__ int clip_stage(float ea_x, float ea_y, float eb_x, fl
 #pragma unroll
   for (int i = 0; i < kSlots; ++i) {
     if (i < nv) {
-      const bool side = ex * (py[i * kThreads] - ea_y) - ey * (px[i * kThreads] - ea_x) >= -kEps;
+      const bool side = __fsub_rn(__fmul_rn(ex, py[i * kThreads] - ea_y),
+                                  __fmul_rn(ey, px[i * kThreads] - ea_x)) >= -kEps;
       in |= static_cast<unsigned>(side) << i;
     }
   }
@@ -158,13 +174,13 @@ __device__ __forceinline__ int clip_stage(float ea_x, float ea_y, float eb_x, fl
     const int j = i + 1 == nv ? 0 : i + 1;
     const float xi = px[i * kThreads], yi = py[i * kThreads];
     const float dx = px[j * kThreads] - xi, dy = py[j * kThreads] - yi;
-    const float denom = ex * dy - ey * dx;
+    const float denom = __fsub_rn(__fmul_rn(ex, dy), __fmul_rn(ey, dx));
     if (fabsf(denom) > kEps) {
-      const float t = (ex * (ea_y - yi) - ey * (ea_x - xi)) / denom;
+      const float t = __fsub_rn(__fmul_rn(ex, ea_y - yi), __fmul_rn(ey, ea_x - xi)) / denom;
       const int pos = __popc(in & ((2u << i) - 1u)) + __popc(crossed);
       if (pos < kSlots) {
-        qx[pos * kThreads] = xi + t * dx;
-        qy[pos * kThreads] = yi + t * dy;
+        qx[pos * kThreads] = __fadd_rn(xi, __fmul_rn(t, dx));
+        qy[pos * kThreads] = __fadd_rn(yi, __fmul_rn(t, dy));
       }
       crossed |= 1u << i;
     }
@@ -205,7 +221,7 @@ __device__ __forceinline__ float intersection(const Quad& a, const Quad& b, floa
       const bool last = i + 1 == nv;
       const float xj = last ? x0 : px[((i + 1) % kSlots) * kThreads];
       const float yj = last ? y0 : py[((i + 1) % kSlots) * kThreads];
-      area2 = area2 + (xi * yj - xj * yi);
+      area2 = __fadd_rn(area2, __fsub_rn(__fmul_rn(xi, yj), __fmul_rn(xj, yi)));
       xi = xj;
       yi = yj;
     }
@@ -217,7 +233,7 @@ __device__ __forceinline__ float iou(const Quad& a, const Quad& b, float* slots)
   float* s = slots + threadIdx.x;
   const float inter =
       intersection(a, b, s, s + kSlots * kThreads, s + 2 * kSlots * kThreads, s + 3 * kSlots * kThreads);
-  return inter / fmaxf(a.area + b.area - inter, kEps);
+  return inter / fmaxf(__fsub_rn(__fadd_rn(a.area, b.area), inter), kEps);
 }
 
 // One block's tile of `size` pairs: cull every pair (zeros written at

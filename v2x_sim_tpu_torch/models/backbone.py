@@ -32,6 +32,13 @@ bf16 once. With a process group (``DetModel.set_process_group``, JAX's
 group's ranks before the variance, with the gradient flowing through
 that average, so every rank normalizes by the global batch's statistics
 and stores the same running stats.
+
+Row sharding (a model's ``spatial_group``, JAX's ``spatial_mesh``): each
+rank holds its rows of every map (``parallel/spatial.py``); the 3x3 convs
+exchange halo rows, the upsample reads one row of each neighbour, and
+train-mode BatchNorm averages its moments over the spatial group and the
+data group in turn: all shards hold as many elements, so the mean of the
+shards' means is the mean of the whole batch.
 """
 
 from __future__ import annotations
@@ -39,11 +46,11 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from v2x_sim_tpu_torch.parallel.mesh import psum
+from v2x_sim_tpu_torch.parallel import spatial
+from v2x_sim_tpu_torch.parallel.mesh import group_size, psum
 
 #: Encoder channel plan per stage (stage 0 is the stride-1 stem).
 STAGE_CHANNELS: Tuple[int, ...] = (32, 64, 128, 256, 512)
@@ -78,13 +85,36 @@ def upsample_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
 
 
+def conv3x3(x: torch.Tensor, conv: nn.Conv2d, group=None) -> torch.Tensor:
+    """A 3x3 pad-1 ``conv`` (stride 1 or 2) of a map, as :func:`_conv`, or
+    of a row shard over the spatial ``group``."""
+    if group is None:
+        return _conv(x, conv)
+    if conv.stride[0] == 2:
+        return spatial.conv3x3s2_halo(x, conv.weight, group)
+    return spatial.conv3x3_halo(x, conv.weight, group, conv.bias)
+
+
+def upsample_like(x: torch.Tensor, skip: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` upsampled bilinearly to ``skip``'s rows and columns
+    (:func:`upsample_bilinear`); on a row shard over ``group``, where the
+    size must double, ``spatial.upsample_bilinear_halo``."""
+    if group is None:
+        return upsample_bilinear(x, skip.shape[-2:])
+    if tuple(skip.shape[-2:]) != (2 * x.shape[-2], 2 * x.shape[-1]):
+        raise ValueError(f"a sharded upsample doubles the shard: {tuple(x.shape)} -> "
+                         f"{tuple(skip.shape)}")
+    return spatial.upsample_bilinear_halo(x, group)
+
+
 def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) -> torch.Tensor:
     """BatchNorm of an NCHW map. Inference uses the float32 running stats
     (PyTorch normalizes a bf16 input in float32 and returns bf16);
     training uses the batch statistics with flax's semantics (see the
-    module docstring), averaged over ``group`` when one is given, and
-    updates the running stats; a bf16 map is normalized in float32 and
-    rounded once, as flax does."""
+    module docstring), averaged over ``group`` (a group or a sequence of
+    groups, ``mesh.group_list``) when one is given, and updates the
+    running stats; a bf16 map is normalized in float32 and rounded once,
+    as flax does."""
     if not train:
         return F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
@@ -93,7 +123,7 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) ->
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean, msq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
     if group is not None:
-        mean, msq = (psum(torch.stack([mean, msq]), group) / dist.get_world_size(group)).unbind()
+        mean, msq = (psum(torch.stack([mean, msq]), group) / group_size(group)).unbind()
     var = (msq - mean * mean).clamp(min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
@@ -113,10 +143,12 @@ class ConvBlock(nn.Module):
     stride 1, one pixel shifted at stride 2.
     """
 
-    #: The process group train-mode BatchNorm averages its batch moments
-    #: over (None: this process's batch alone); set through the model's
-    #: ``set_process_group`` (:class:`BatchNormGroup`).
+    #: The process group(s) train-mode BatchNorm averages its batch moments
+    #: over (None: this process's batch alone), and the spatial group whose
+    #: row shard the block convolves (None: the whole map); set through the
+    #: model (:class:`BatchNormGroup`).
     process_group = None
+    spatial_group = None
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
@@ -127,20 +159,34 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """NCHW in, NCHW out."""
-        x = torch.relu(_bn(_conv(x, self.conv1), self.bn1, train, self.process_group))
-        return torch.relu(_bn(_conv(x, self.conv2), self.bn2, train, self.process_group))
+        return self.run(x, train, self.process_group, self.spatial_group)
+
+    def run(self, x: torch.Tensor, train: bool, bn_group, spatial_group) -> torch.Tensor:
+        """The block with the groups given: BatchNorm's moments over
+        ``bn_group``, the convs on a row shard over ``spatial_group``."""
+        x = torch.relu(_bn(conv3x3(x, self.conv1, spatial_group), self.bn1, train, bn_group))
+        return torch.relu(_bn(conv3x3(x, self.conv2, spatial_group), self.bn2, train, bn_group))
 
 
 class BatchNormGroup:
     """Mixin of the models (``DetModel``, ``SegModel``) whose train-mode
-    BatchNorm can sync over a process group."""
+    BatchNorm can sync over a process group and whose maps can be row
+    shards over a spatial group."""
+
+    #: The spatial group the model's maps are row-sharded over (None: each
+    #: rank holds whole maps); given to the model's constructor.
+    spatial_group = None
 
     def set_process_group(self, group) -> None:
         """Sync the train-mode BatchNorm of every ``ConvBlock`` inside over
-        ``group`` (None: unsynced)."""
+        the spatial group, then ``group`` (both None: unsynced), and point
+        the blocks, the decoder and the heads at the spatial group."""
+        groups = tuple(g for g in (self.spatial_group, group) if g is not None)
         for m in self.modules():
             if isinstance(m, ConvBlock):
-                m.process_group = group
+                m.process_group = groups or None
+            if isinstance(m, (ConvBlock, STPNDecoder, _Head)):
+                m.spatial_group = self.spatial_group
 
 
 class STPNEncoder(nn.Module):
@@ -180,11 +226,14 @@ class STPNDecoder(nn.Module):
             for i in range(len(chs) - 1)
         )
 
+    #: Row shards over this group (set by the model); None: whole maps.
+    spatial_group = None
+
     def forward(self, feats: Sequence[torch.Tensor], train: bool = False) -> torch.Tensor:
         x = feats[-1]
         for i, block in enumerate(self.blocks):
             skip = feats[-2 - i]
-            x = upsample_bilinear(x, skip.shape[-2:])
+            x = upsample_like(x, skip, self.spatial_group)
             x = block(torch.cat([x, skip.to(x.dtype)], dim=1), train)
         return x
 
@@ -199,9 +248,12 @@ class _Head(nn.Module):
         self.conv1 = nn.Conv2d(cin, hidden, 3, padding=1)
         self.conv2 = nn.Conv2d(hidden, num_anchors * out_per_anchor, 1)
 
+    #: Row shards over this group (set by the model); None: whole maps.
+    spatial_group = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW in; NHWC (N, H, W, K, out) out, in the activation dtype."""
-        y = _conv(torch.relu(_conv(x, self.conv1)), self.conv2)
+        y = _conv(torch.relu(conv3x3(x, self.conv1, self.spatial_group)), self.conv2)
         n, _, h, w = y.shape
         return y.permute(0, 2, 3, 1).reshape(n, h, w, self.num_anchors, self.out_per_anchor)
 

@@ -13,6 +13,14 @@ Output: ``DetOutput(cls_logits (B, A, H, W, K, C), reg (B, A, H, W, K, 6),
 fused_feat)`` in the activation dtype (the dtype of ``occupancy``);
 ``fused_feat`` is the (B, A, h, w, C) map at the fusion layer after
 fusion when ``kd`` is set (the KD student feature), else None.
+
+With a ``spatial_group`` (JAX's ``spatial_mesh``), H above is this rank's
+rows of the BEV plane (``parallel/spatial.py``: rank r of n holds rows
+[r·H/n, (r+1)·H/n)), in the input and in every output: the encoder, the
+decoder and the heads run on the shard, and the fusion gathers the
+fusion layer's rows, fuses the whole map on every rank of the group and
+takes its rows back, as JAX's partitioner all-gathers the map the warp
+needs. The encoder's stride-2 stages need H % (n · 2^4) == 0.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from v2x_sim_tpu_torch.models.backbone import (
 from v2x_sim_tpu_torch.models.det import fusion as F
 from v2x_sim_tpu_torch.models.det.v2vnet import V2VNetFusion
 from v2x_sim_tpu_torch.models.det.when2com import When2comFusion
+from v2x_sim_tpu_torch.parallel.spatial import gather_rows, take_rows
 
 #: The collaboration modes, as the JAX package's.
 MODES = (
@@ -111,16 +120,19 @@ class DetModel(BatchNormGroup, nn.Module):
       use_vis: the input carries D visibility channels after the D
         occupancy ones (DetModule's ``use_vis``): the encoder's first conv
         takes 2·D channels.
+      spatial_group: the process group the BEV rows are sharded over (see
+        the module docstring); None: whole maps.
 
     ``set_process_group(group)`` (JAX's ``axis_name``): the group
     train-mode BatchNorm averages its batch moments over, set by the task
-    module for data parallelism; inference never syncs.
+    module for data parallelism, after the spatial group; inference never
+    syncs.
     """
 
     def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0,
                  fusion_layer: Optional[int] = None, warp_flag: bool = True,
                  v2v_rounds: int = 3, v2v_msg_norm: bool = False, kd: bool = False,
-                 use_vis: bool = False):
+                 use_vis: bool = False, spatial_group=None):
         super().__init__()
         check_mode(mode)
         self.config = config
@@ -136,6 +148,8 @@ class DetModel(BatchNormGroup, nn.Module):
         self.reg_head = RegressionHead(chans[0], k, config.anchors.box_code_size)
         self.fusion = build_fusion(mode, config.grid, chans[self.layer], config.num_agents,
                                    warp_flag, v2v_rounds, v2v_msg_norm)
+        self.spatial_group = spatial_group
+        self.set_process_group(None)
 
     # The forward pass in stages, so a profiler can time each one.
 
@@ -148,15 +162,18 @@ class DetModel(BatchNormGroup, nn.Module):
 
     def fuse(self, feats: List[torch.Tensor], trans, agent_mask, train: bool = False) -> List[torch.Tensor]:
         """Fuse the fusion-layer map across agents (no-op for lowerbound
-        and upperbound)."""
+        and upperbound); on row shards, over the whole map gathered from
+        the spatial group, keeping this rank's rows of the result."""
         if self.mode in NO_FUSION:
             return feats
-        k = self.layer
+        k, g = self.layer, self.spatial_group
         a = agent_mask.shape[1]
-        f = unfold_agents(feats[k].permute(0, 2, 3, 1), a)  # (B, A, h, w, C)
+        f = feats[k] if g is None else gather_rows(feats[k], g)
+        f = unfold_agents(f.permute(0, 2, 3, 1), a)  # (B, A, h, w, C)
         fused = fuse_agents(self.mode, self.fusion, f, trans, agent_mask, self.config.grid, train)
+        fused = fold_agents(fused).permute(0, 3, 1, 2)
         feats = list(feats)
-        feats[k] = fold_agents(fused).permute(0, 3, 1, 2)
+        feats[k] = fused if g is None else take_rows(fused, g)
         return feats
 
     def decode_heads(self, feats: List[torch.Tensor], num_agents: int, train: bool = False) -> DetOutput:
@@ -178,8 +195,10 @@ class TeacherModel(DetModel):
     fusion-layer map as the KD target. An upperbound model's weights load
     as the teacher (``bridge.key_map("upperbound")``)."""
 
-    def __init__(self, config: Config, width_mult: float = 1.0, fusion_layer: Optional[int] = None):
-        super().__init__(config, "upperbound", width_mult, fusion_layer, kd=True)
+    def __init__(self, config: Config, width_mult: float = 1.0, fusion_layer: Optional[int] = None,
+                 spatial_group=None):
+        super().__init__(config, "upperbound", width_mult, fusion_layer, kd=True,
+                         spatial_group=spatial_group)
 
     def kd_target(self, occupancy: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, A, H, W, D) merged occupancy -> the (B, A, h, w, C) map at the

@@ -15,6 +15,12 @@ upperbound, whose input is already merged); each up stage resizes
 bilinearly to its skip's size and convolves ``cat([up, skip])``; a 1x1
 conv with a bias gives the logits. Module names follow the flax tree
 through ``bridge.seg_key_map``.
+
+With a ``spatial_group`` (JAX's ``spatial_mesh``), each rank holds its
+rows of every map, as ``DetModel`` does: the 3x3 convs and the upsamples
+exchange halo rows, the pools stay local, the bottleneck's fusion runs on
+the whole map gathered from the group, and the 1x1 head is local. H must
+keep every shard's rows even through the pools: H % (n · 2^depth) == 0.
 """
 
 from __future__ import annotations
@@ -32,9 +38,10 @@ from v2x_sim_tpu_torch.models.backbone import (
     _conv,
     fold_agents,
     unfold_agents,
-    upsample_bilinear,
+    upsample_like,
 )
 from v2x_sim_tpu_torch.models.det.net import NO_FUSION, build_fusion, check_mode, fuse_agents
+from v2x_sim_tpu_torch.parallel import spatial
 
 UNET_CHANNELS: Tuple[int, ...] = (32, 64, 128, 256)
 
@@ -61,12 +68,14 @@ class SegModel(BatchNormGroup, nn.Module):
       width_mult: uniform scale of UNET_CHANNELS and the bottleneck, each
         width ``max(8, round(c * width_mult))``.
       depth: down/up stages, 1..4; the bottleneck sits at H / 2^depth.
+      spatial_group: the process group the BEV rows are sharded over (see
+        the module docstring); None: whole maps.
 
     ``set_process_group``: as ``DetModel``'s.
     """
 
     def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0,
-                 depth: int = 4):
+                 depth: int = 4, spatial_group=None):
         super().__init__()
         check_mode(mode)
         if not 1 <= depth <= len(UNET_CHANNELS):
@@ -95,6 +104,8 @@ class SegModel(BatchNormGroup, nn.Module):
         self.head = nn.Conv2d(cin, config.num_seg_classes, 1)
         # No warp_flag (when2com always warps), 3 v2v rounds, no message norm.
         self.fusion = build_fusion(mode, config.grid, width, config.num_agents)
+        self.spatial_group = spatial_group
+        self.set_process_group(None)
 
     # The forward pass in stages, so a profiler can time each one. Maps
     # are NCHW views of channels-last memory, as in the det backbone.
@@ -108,23 +119,27 @@ class SegModel(BatchNormGroup, nn.Module):
         for down in self.downs:
             x = down(x, train)
             skips.append(x)
-            x = F.max_pool2d(x, 2, 2)
+            x = F.max_pool2d(x, 2, 2) if self.spatial_group is None else spatial.max_pool2x2_rows(x)
         return x, skips
 
     def fuse(self, x: torch.Tensor, trans, agent_mask, train: bool = False) -> torch.Tensor:
         """The bottleneck's map fused across agents (as it is for
-        lowerbound and upperbound)."""
+        lowerbound and upperbound); on row shards, over the whole map
+        gathered from the spatial group, keeping this rank's rows."""
         if self.mode in NO_FUSION:
             return x
-        f = unfold_agents(x.permute(0, 2, 3, 1), agent_mask.shape[1])  # (B, A, h, w, C)
+        g = self.spatial_group
+        f = x if g is None else spatial.gather_rows(x, g)
+        f = unfold_agents(f.permute(0, 2, 3, 1), agent_mask.shape[1])  # (B, A, h, w, C)
         fused = fuse_agents(self.mode, self.fusion, f, trans, agent_mask, self.config.grid, train)
-        return fold_agents(fused).permute(0, 3, 1, 2)
+        fused = fold_agents(fused).permute(0, 3, 1, 2)
+        return fused if g is None else spatial.take_rows(fused, g)
 
     def decode(self, x: torch.Tensor, skips: List[torch.Tensor], num_agents: int,
                train: bool = False) -> SegOutput:
         """Up stages over the skips, deepest first, then the 1x1 head."""
         for up, skip in zip(self.ups, reversed(skips)):
-            x = upsample_bilinear(x, skip.shape[-2:])
+            x = upsample_like(x, skip, self.spatial_group)
             x = up(torch.cat([x, skip.to(x.dtype)], dim=1), train)
         logits = _conv(x, self.head).permute(0, 2, 3, 1).float()
         return SegOutput(unfold_agents(logits, num_agents))

@@ -159,9 +159,32 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+def group_list(group) -> List[Any]:
+    """The groups a collective here runs over, in order: none for None,
+    the group itself, or each group of a sequence in turn (a sum over
+    data ranks of sums over spatial ranks is the sum over the mesh)."""
+    if group is None:
+        return []
+    if isinstance(group, (list, tuple)):
+        return [g for g in group if g is not None]
+    return [group]
+
+
+def group_size(group) -> int:
+    """The number of ranks a collective over ``group`` (as ``group_list``
+    reads it) sums over: the product of the groups' sizes, 1 for none."""
+    size = 1
+    for g in group_list(group):
+        size *= dist.get_world_size(g)
+    return size
+
+
 def psum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over ``group``, differentiable (see _AllReduceSum)."""
-    return _AllReduceSum.apply(x, group)
+    """The sum of ``x`` over ``group`` (a group, or a sequence of groups
+    summed over in turn), differentiable (see _AllReduceSum)."""
+    for g in group_list(group):
+        x = _AllReduceSum.apply(x, g)
+    return x
 
 
 @torch.no_grad()
@@ -180,10 +203,11 @@ def _flat_(tensors: Sequence[torch.Tensor], collective: Callable[[torch.Tensor],
 
 
 def all_reduce_(tensors: Iterable[torch.Tensor], group) -> None:
-    """Sum every tensor over ``group`` in place, one all_reduce a dtype; a
-    no-op without a group."""
-    if group is not None:
-        _flat_(list(tensors), lambda flat: dist.all_reduce(flat, group=group))
+    """Sum every tensor over ``group`` (see ``group_list``) in place, one
+    all_reduce a dtype and group; a no-op without a group."""
+    tensors = list(tensors)
+    for g in group_list(group):
+        _flat_(tensors, lambda flat: dist.all_reduce(flat, group=g))
 
 
 def average_(tensors: Iterable[torch.Tensor], group) -> None:
@@ -191,25 +215,28 @@ def average_(tensors: Iterable[torch.Tensor], group) -> None:
     over the group's size); a no-op without a group. It is for tensors
     the ranks already hold alike (the running stats of synced BatchNorm),
     and checks that they do: it raises when the average moved an entry by
-    more than the rounding of n equal terms summed and divided by n."""
-    if group is not None:
-        n = dist.get_world_size(group)
+    more than the rounding of n equal terms summed and divided by n. A
+    sequence of groups is averaged over in turn."""
+    tensors = list(tensors)
+    for g in group_list(group):
+        n = dist.get_world_size(g)
 
-        def mean(flat):
+        def mean(flat, g=g, n=n):
             before = flat.clone()
-            dist.all_reduce(flat, group=group)
+            dist.all_reduce(flat, group=g)
             flat.div_(n)
             tol = n * torch.finfo(flat.dtype).eps
             if bool(((flat - before).abs() > tol * before.abs()).any()):
                 raise RuntimeError(f"the {n} ranks held different values before their average")
 
-        _flat_(list(tensors), mean)
+        _flat_(tensors, mean)
 
 
 def sum_metrics(metrics: Mapping[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
-    """The scalar metrics summed over ``group`` in one all_reduce (as they
-    are without a group)."""
-    if group is None:
+    """The scalar metrics summed over ``group`` (see ``group_list``) in
+    one all_reduce a group (as they are without a group)."""
+    groups = group_list(group)
+    if not groups:
         return dict(metrics)
     keys = list(metrics)
     vals = [metrics[k].detach() for k in keys]
@@ -217,7 +244,8 @@ def sum_metrics(metrics: Mapping[str, torch.Tensor], group) -> Dict[str, torch.T
     for v in vals[1:]:
         dtype = torch.promote_types(dtype, v.dtype)
     flat = torch.stack([v.to(dtype) for v in vals])
-    dist.all_reduce(flat, group=group)
+    for g in groups:
+        dist.all_reduce(flat, group=g)
     return dict(zip(keys, flat.unbind()))
 
 

@@ -1,18 +1,41 @@
-"""BEV row sharding: halo-exchange convs over the mesh's ``spatial`` group.
+"""BEV row sharding and channel parallelism over a process group.
 
-Port of ``v2x_sim_tpu/parallel/spatial.py``'s manual path. The BEV plane's
-rows (dim 2 of the port's NCHW maps) are split over the spatial group in
-rank order; a 3x3 conv fetches the one row it needs from each neighbour
-(a halo) and then runs unpadded over its shard. Zeros stand in for the
-missing neighbours at the global edges: the backbone's pad of 1, so the
-sharded stages equal the unsharded ones.
+Port of ``v2x_sim_tpu/parallel/spatial.py``'s manual path, and of what the
+JAX package leaves to XLA's SPMD partitioner: the whole models under
+``spatial_mesh`` (the row pins of ``models/det/net.py`` and
+``models/seg/unet.py``) and the channel-sharded conv of
+``tests/test_spatial.py``. The BEV plane's rows (dim 2 of the port's NCHW
+maps and of its (B, A, H, W, ...) tensors) are split over the spatial
+group in rank order. Every op here, given each rank's rows, returns each
+rank's rows of the unsharded op's result:
 
-The exchange is one ``all_reduce`` of a zeroed (n, ...) buffer in which
-each rank fills its own slot with its edge rows; each rank then reads its
-neighbours' slots. It moves n times the halo's bytes (a stage's halo is
-two rows of its map), but it is differentiable by construction
+  * ``halo_exchange_rows``: a shard padded with one row of each
+    neighbour (zeros at the global edges, the backbone's pad of 1);
+  * ``conv3x3_halo`` (stride 1, optional bias) and ``conv3x3s2_halo``
+    (stride 2): the halo rows, the columns padded locally, an unpadded
+    conv;
+  * ``upsample_bilinear_halo``: the 2x bilinear upsample
+    (``interpolate(align_corners=False)``) of a shard;
+  * ``max_pool2x2_rows``: the 2x2 pool, local when each shard's row count
+    is even;
+  * ``gather_rows`` / ``take_rows``: the whole map from the shards, and a
+    rank's rows of a whole map, where an op needs every row (the fusion's
+    warp, the predict's decode);
+  * ``conv3x3_channel_parallel``: a 3x3 conv whose input channels are
+    split over the group, the partial outputs summed in one all-reduce.
+
+Each exchange is one ``all_reduce`` of a zeroed (n, ...) buffer in which
+each rank fills its own slot; each rank then reads the slots it needs. It
+moves n times the bytes it must, but it is differentiable by construction
 (``mesh.psum``: the gradient returns through the reverse exchange) and
-uses only a collective that gloo also runs on CUDA tensors.
+uses only a collective that gloo also runs on CUDA tensors. The backward
+runs these all-reduces wherever autograd reaches them, and the ranks must
+meet in the same order: every rank builds the same graph (the edge ranks
+mask a neighbour's slot to zero instead of leaving it out), so autograd
+walks it in the same order on each.
+
+``models/backbone.py`` calls these ops when a model has a spatial group;
+the manual path sits on the same code:
 
   * ``make_spatial_stem`` / ``make_spatial_encoder``: the stride-1 stem
     and the 5-stage STPN encoder in inference BatchNorm, from the port's
@@ -25,14 +48,16 @@ uses only a collective that gloo also runs on CUDA tensors.
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import TYPE_CHECKING, Callable, List
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from v2x_sim_tpu_torch.models.backbone import ConvBlock, STPNEncoder, _bn
 from v2x_sim_tpu_torch.parallel.mesh import Mesh, all_reduce_, psum
+
+if TYPE_CHECKING:
+    from v2x_sim_tpu_torch.models.backbone import ConvBlock, STPNEncoder
 
 
 def _gather_slots(piece: torch.Tensor, group) -> torch.Tensor:
@@ -48,17 +73,29 @@ def halo_exchange_rows(x: torch.Tensor, group) -> torch.Tensor:
     the global edges)."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
     edges = _gather_slots(torch.stack([x[:, :, :1], x[:, :, -1:]]), group)
-    zero = torch.zeros_like(x[:, :, :1])
-    above = edges[r - 1, 1] if r > 0 else zero
-    below = edges[r + 1, 0] if r < n - 1 else zero
+    above = _masked(edges[(r - 1) % n, 1], r > 0)
+    below = _masked(edges[(r + 1) % n, 0], r < n - 1)
     return torch.cat([above, x, below], dim=2)
 
 
-def conv3x3_halo(x: torch.Tensor, weight: torch.Tensor, group) -> torch.Tensor:
-    """Stride-1 3x3 conv (pad 1, no bias) of a row shard: the halo rows,
-    the columns padded locally, an unpadded conv. Same shape out."""
+def _masked(t: torch.Tensor, keep: bool) -> torch.Tensor:
+    """``t``, or zeros of its shape through the same graph node (see the
+    module docstring: the ranks' graphs must not differ)."""
+    return torch.where(torch.tensor(keep, device=t.device), t, torch.zeros((), dtype=t.dtype,
+                                                                           device=t.device))
+
+
+def conv3x3_halo(x: torch.Tensor, weight: torch.Tensor, group,
+                 bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Stride-1 3x3 conv (pad 1) of a row shard: the halo rows, the
+    columns padded locally, an unpadded conv. Same shape out. The params
+    are cast to the activation dtype; in bf16 the bias is added to the
+    rounded conv output, as ``models/backbone.py::_conv`` adds it."""
     xh = F.pad(halo_exchange_rows(x, group), (1, 1))
-    return F.conv2d(xh, weight.to(x.dtype))
+    w = weight.to(x.dtype)
+    if bias is None or x.dtype != torch.bfloat16:
+        return F.conv2d(xh, w, None if bias is None else bias.to(x.dtype))
+    return F.conv2d(xh, w) + bias.to(x.dtype)[:, None, None]
 
 
 def conv3x3s2_halo(x: torch.Tensor, weight: torch.Tensor, group) -> torch.Tensor:
@@ -68,21 +105,84 @@ def conv3x3s2_halo(x: torch.Tensor, weight: torch.Tensor, group) -> torch.Tensor
     below, and emits H_loc / 2 rows."""
     if x.shape[2] % 2:
         raise ValueError(f"a stride-2 shard needs an even row count, got {tuple(x.shape)}")
-    r = dist.get_rank(group)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
     bottoms = _gather_slots(x[:, :, -1:], group)
-    above = bottoms[r - 1] if r > 0 else torch.zeros_like(x[:, :, :1])
+    above = _masked(bottoms[(r - 1) % n], r > 0)
     xh = F.pad(torch.cat([above, x], dim=2), (1, 1))
     return F.conv2d(xh, weight.to(x.dtype), stride=2)
 
 
+def upsample_bilinear_halo(x: torch.Tensor, group) -> torch.Tensor:
+    """The 2x bilinear upsample (``models/backbone.py::upsample_bilinear``,
+    ``align_corners=False``, bf16's rows-then-columns rounding included)
+    of a row shard: (B, C, h, W) -> (B, C, 2h, 2W), this rank's rows of
+    the upsampled map.
+
+    Output row k reads input rows floor((k + 1/2) / 2 - 1/2) and the one
+    after, so a shard needs one row from each neighbour. At scale exactly
+    1/2, upsampling the shard with its neighbours' rows, (h + 1 or 2)
+    rows to twice as many, gives the unsharded output rows, each from the
+    same two input rows at the same weights, and 2 rows a neighbour are
+    cropped. At the global top and bottom there is no neighbour row: there
+    the unsharded upsample clamps to the edge row, and so does the
+    shard's, whose own edge is that row."""
+    from v2x_sim_tpu_torch.models.backbone import upsample_bilinear  # it imports this module
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    top, bottom = int(r > 0), int(r < n - 1)
+    xh = halo_exchange_rows(x, group)
+    xh = xh[:, :, 1 - top:xh.shape[2] - 1 + bottom]
+    y = upsample_bilinear(xh, (2 * xh.shape[2], 2 * x.shape[3]))
+    return y[:, :, 2 * top:y.shape[2] - 2 * bottom]
+
+
+def max_pool2x2_rows(x: torch.Tensor) -> torch.Tensor:
+    """The 2x2, stride-2 max pool of a row shard. Shards start at even
+    global rows when every shard's row count is even, and then no window
+    crosses a border; an odd count raises."""
+    if x.shape[2] % 2:
+        raise ValueError(f"a pooled shard needs an even row count, got {tuple(x.shape)}")
+    return F.max_pool2d(x, 2, 2)
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The whole map from every rank's row shard (dim 2), in rank order,
+    on every rank. Differentiable: each rank's whole map feeds its own
+    loss, and a shard's gradient is the sum over the ranks of the
+    cotangent of its rows (``mesh.psum``'s transpose)."""
+    return torch.cat(_gather_slots(x, group).unbind(0), dim=2)
+
+
+def take_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's rows ``[r·H/n, (r+1)·H/n)`` of a whole map (dim 2), r
+    being its rank in ``group`` of n."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    h = x.shape[2]
+    if h % n:
+        raise ValueError(f"{h} rows do not split over {n} ranks")
+    return x[:, :, r * (h // n):(r + 1) * (h // n)]
+
+
+def conv3x3_channel_parallel(x: torch.Tensor, weight: torch.Tensor, group) -> torch.Tensor:
+    """A 3x3 conv (pad 1, no bias) with its input channels split over
+    ``group``: ``x`` (B, C_in/n, H, W) is this rank's slice of the input's
+    channels and ``weight`` (C_out, C_in/n, 3, 3) the kernel's matching
+    slice. Each rank convolves its slice, and the partial outputs meet in
+    one all-reduce: every rank gets the whole (B, C_out, H, W) output.
+
+    The all-reduce's transpose is an all-reduce of the cotangents (each
+    rank's output feeds its own loss, and the step's loss is the sum of
+    the ranks'). So when every rank takes the same loss of the replicated
+    output, the gradients are n times that loss's: divide the loss by n,
+    or let one rank's loss alone drive the backward."""
+    return psum(F.conv2d(x, weight.to(x.dtype), padding=1), group)
+
+
 def _block_shard(x: torch.Tensor, block: ConvBlock, group, train: bool = False) -> torch.Tensor:
-    """A ``ConvBlock`` ((conv3x3 - BN - ReLU) x2, the first conv of
-    stride 1 or 2) on a row shard; train-mode BatchNorm averages its
-    moments over ``group`` and updates the block's running stats."""
-    conv0 = conv3x3_halo if block.conv1.stride[0] == 1 else conv3x3s2_halo
-    bn_group = group if train else None
-    x = torch.relu(_bn(conv0(x, block.conv1.weight, group), block.bn1, train, bn_group))
-    return torch.relu(_bn(conv3x3_halo(x, block.conv2.weight, group), block.bn2, train, bn_group))
+    """A ``ConvBlock`` on a row shard over ``group``; train-mode BatchNorm
+    averages its moments over ``group`` and updates the block's running
+    stats."""
+    return block.run(x, train, group if train else None, group)
 
 
 def make_spatial_stem(mesh: Mesh, block: ConvBlock) -> Callable[[torch.Tensor], torch.Tensor]:

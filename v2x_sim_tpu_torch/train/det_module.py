@@ -28,6 +28,15 @@ parallelism:
     gradients (each task's, with MGDA) are summed over it before clipping
     and Adam, the metrics are summed and the running stats averaged: the
     step is the single-process step on the global batch;
+  * ``spatial_group`` (JAX's ``spatial_mesh``, ``Mesh.spatial_group``):
+    the model runs on this rank's rows of the BEV plane
+    (``models/det/net.py``). ``prepare_batch`` voxelizes and assigns the
+    targets on the whole grid, as without it (the rotated-IoU kernels run
+    here), then keeps this rank's rows of the maps and of the targets.
+    The counts, the gradients and the metrics are summed over the spatial
+    group and then the data group, never averaged: the step is the
+    single-process step. ``predict`` gathers the heads' rows and decodes
+    the whole map on every rank of the group;
   * ``init_weights`` / ``init_teacher_weights``: fresh weights drawn as
     flax's default initializers draw them (``models/init.py``).
 
@@ -44,6 +53,7 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple, Unio
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from v2x_sim_tpu_torch import resolve_device
 from v2x_sim_tpu_torch.bridge import state_dict_from_flax
@@ -62,6 +72,7 @@ from v2x_sim_tpu_torch.ops.postprocess import decode_topk
 from v2x_sim_tpu_torch.ops.visibility import OCCUPIED, visibility_batch
 from v2x_sim_tpu_torch.ops.voxelize import merged_occupancy, voxelize_batch
 from v2x_sim_tpu_torch.parallel.mesh import all_reduce_, average_, psum, sum_metrics
+from v2x_sim_tpu_torch.parallel.spatial import gather_rows, take_rows
 from v2x_sim_tpu_torch.utils.losses import (
     kd_mse_loss_sum,
     smooth_l1_loss_sparse_sum,
@@ -133,6 +144,8 @@ class DetModule:
         (:meth:`train_step`).
       process_group: the data-parallel group (``Mesh.data_group``) the
         step's sums run over; None steps alone.
+      spatial_group: the group (``Mesh.spatial_group``) the BEV rows are
+        sharded over; None: whole maps.
     """
 
     def __init__(
@@ -152,6 +165,7 @@ class DetModule:
         use_vis: bool = False,
         mgda: bool = False,
         process_group=None,
+        spatial_group=None,
     ):
         check_mode(mode)
         if kd_reduce not in ("mean", "pos"):
@@ -170,9 +184,12 @@ class DetModule:
         self.model = DetModel(
             config, mode, width_mult, warp_flag=warp_flag, v2v_rounds=v2v_rounds,
             v2v_msg_norm=v2v_msg_norm, kd=kd_weight > 0.0, use_vis=use_vis,
+            spatial_group=spatial_group,
         ).to(self.device, memory_format=torch.channels_last)
         self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
-        self.process_group = process_group
+        self.spatial_group = spatial_group
+        #: What the step's sums run over: the spatial group, then the data group.
+        self.groups = tuple(g for g in (spatial_group, process_group) if g is not None) or None
         self.model.set_process_group(process_group)
         #: The frozen early-fusion teacher, once its weights are loaded.
         self.teacher: Optional[TeacherModel] = None
@@ -202,7 +219,7 @@ class DetModule:
         if self.kd_weight <= 0.0:
             raise ValueError("the teacher is used only with kd_weight > 0")
         dtype = next(self.model.parameters()).dtype
-        teacher = TeacherModel(self.config, self.width_mult)
+        teacher = TeacherModel(self.config, self.width_mult, spatial_group=self.spatial_group)
         teacher.load_state_dict(state_dict, strict=True)
         self.teacher = teacher.to(self.device, dtype, memory_format=torch.channels_last).eval()
         self.teacher.requires_grad_(False)
@@ -266,10 +283,14 @@ class DetModule:
         batch = self.to_device(batch)
         k = max_boxes or self.config.max_boxes
         agent_mask = batch["agent_mask"].to(torch.bool)
-        out = self.model(self.model_input(batch), batch["trans"], agent_mask)
+        g = self.spatial_group
+        occ = self.model_input(batch)
+        out = self.model(occ if g is None else take_rows(occ, g), batch["trans"], agent_mask)
+        cls, reg = out.cls_logits, out.reg
+        if g is not None:  # the peak filter and the top-K read across shard borders
+            cls, reg = gather_rows(cls, g), gather_rows(reg, g)
         boxes, scores, valid = decode_topk(
-            out.cls_logits, out.reg, self.anchors, k, score_threshold, agent_mask,
-            peak_window=self.peak_window,
+            cls, reg, self.anchors, k, score_threshold, agent_mask, peak_window=self.peak_window,
         )
         return batched_nms(boxes, scores, valid, nms_iou)
 
@@ -293,12 +314,34 @@ class DetModule:
     def prepare_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """Per-batch preprocessing on the device: ``occupancy``, ``trans``,
         ``agent_mask``, the training targets of :meth:`targets`, and with
-        KD the teacher's merged ``teacher_occupancy``."""
+        KD the teacher's merged ``teacher_occupancy``; with a spatial
+        group, this rank's rows of them (:meth:`_rows`)."""
         bt = self.to_device(batch)
         out = {"occupancy": self.model_input(bt), "trans": bt["trans"],
                "agent_mask": bt["agent_mask"], **self.targets(bt)}
         if self.kd_weight > 0.0:
             out["teacher_occupancy"] = self.merged_occupancy(bt)
+        return out if self.spatial_group is None else self._rows(out)
+
+    def _rows(self, prepared: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a prepared batch of the whole grid: the
+        occupancy maps' and the labels' rows; of the sparse regression
+        targets, those whose cell lies in the rows, shifted to the shard's
+        first row (the others keep a weight of 0 at cell 0)."""
+        g = self.spatial_group
+        out = dict(prepared)
+        for key in ("occupancy", "teacher_occupancy"):
+            if key in out:
+                out[key] = take_rows(out[key], g)
+        b, a = prepared["labels"].shape[:2]
+        h, w = self.config.grid.bev_shape
+        out["labels"] = take_rows(prepared["labels"].reshape(b, a, h, -1), g).reshape(b, a, -1)
+        rows = h // dist.get_world_size(g)
+        lo = dist.get_rank(g) * rows
+        cell = prepared["reg_cell"]
+        mine = (cell >= lo * w) & (cell < (lo + rows) * w)
+        out["reg_cell"] = torch.where(mine, cell - lo * w, 0)
+        out["reg_sp_w"] = torch.where(mine, prepared["reg_sp_w"], 0.0)
         return out
 
     @torch.no_grad()
@@ -341,9 +384,9 @@ class DetModule:
         prepared targets, with padded agents masked out of both terms, each
         normalized by max(positive count, 1); with ``teacher_feat``, plus
         ``kd_weight`` times the KD MSE of ``out.fused_feat`` against it
-        (padded agents included, as in the JAX package). Under a process
-        group the counts are the group's sums, so each term is this rank's
-        share of the global batch's."""
+        (padded agents included, as in the JAX package). Under a spatial or
+        a process group the counts are the groups' sums, so each term is
+        this rank's share of the global batch's."""
         am = prepared["agent_mask"].to(torch.bool)
         b, a = am.shape
         labels = torch.where(am[:, :, None], prepared["labels"].reshape(b, a, -1), -1)
@@ -353,8 +396,7 @@ class DetModule:
         loc_sum, _ = smooth_l1_loss_sparse_sum(
             out.reg.reshape(b, a, r_cells, -1), prepared["reg_cell"], prepared["reg_lane"],
             prepared["reg_sp_t"], sp_w)
-        if self.process_group is not None:
-            num_pos = psum(num_pos, self.process_group)
+        num_pos = psum(num_pos, self.groups)
         denom = num_pos.clamp(min=1.0)
         cls_loss, loc_loss = cls_sum / denom, loc_sum / denom
         loss = cls_loss + loc_loss
@@ -363,8 +405,8 @@ class DetModule:
             kd_sum, kd_n = kd_mse_loss_sum(out.fused_feat, teacher_feat)
             if self.kd_reduce == "pos":
                 kd_n = denom
-            elif self.process_group is not None:
-                kd_n = psum(kd_n, self.process_group)
+            else:
+                kd_n = psum(kd_n, self.groups)
             kd = kd_sum / kd_n.clamp(min=1.0)
             loss = loss + self.kd_weight * kd
             metrics["kd_loss"] = kd
@@ -400,9 +442,9 @@ class DetModule:
         every parameter's gradient, zeros included, so that Adam advances
         every moment as optax does. The metrics add ``mgda_w_<task>``.
 
-        Under a process group the gradients (each task's before MGDA) and
-        the metrics are summed over it, and the running stats averaged,
-        before clipping and Adam."""
+        Under a spatial or a process group the gradients (each task's
+        before MGDA) and the metrics are summed over them, and the running
+        stats averaged, before clipping and Adam."""
         self.optimizer.zero_grad(set_to_none=True)
         if self.mgda:
             metrics = self._mgda_backward(prepared)
@@ -410,10 +452,10 @@ class DetModule:
             loss, metrics = self.loss(prepared, train=True)
             loss.backward()
             all_reduce_([p.grad for p in self.model.parameters() if p.grad is not None],
-                        self.process_group)
-            metrics = sum_metrics(metrics, self.process_group)
+                        self.groups)
+            metrics = sum_metrics(metrics, self.groups)
         # A no-op in value (BatchNorm synced the moments), kept as JAX's pmean.
-        average_([b for b in self.model.buffers() if b.is_floating_point()], self.process_group)
+        average_([b for b in self.model.buffers() if b.is_floating_point()], self.groups)
         if self.grad_clip > 0.0:
             clip_by_global_norm_(
                 [p.grad for p in self.model.parameters() if p.grad is not None], self.grad_clip)
@@ -433,11 +475,11 @@ class DetModule:
             g = torch.autograd.grad(metrics[key], params, retain_graph=i + 1 < len(tasks),
                                     allow_unused=True)
             grads.append([torch.zeros_like(p) if gi is None else gi for p, gi in zip(params, g)])
-            all_reduce_(grads[-1], self.process_group)
+            all_reduce_(grads[-1], self.groups)
         combined, weights = mgda_grads(grads)
         for p, g in zip(params, combined):
             p.grad = g
-        metrics = sum_metrics(metrics, self.process_group)
+        metrics = sum_metrics(metrics, self.groups)
         metrics.update({f"mgda_w_{key}": weights[i] for i, key in enumerate(tasks)})
         return metrics
 

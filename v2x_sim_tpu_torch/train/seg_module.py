@@ -14,6 +14,12 @@ collaboration mode, with data parallelism:
   * ``process_group``: as ``DetModule``'s (the labeled-pixel count summed
     over the group, BatchNorm's moments averaged, gradients and metrics
     summed, running stats averaged);
+  * ``spatial_group``: as ``DetModule``'s (JAX's ``spatial_mesh``): the
+    model runs on this rank's rows, ``prepare_batch`` keeps the rows of
+    the occupancy and of the labels, and the sums run over the spatial
+    group, then the data group; ``eval_step`` returns the whole class map
+    of the data rank's scenes and their confusion matrix on every rank of
+    the spatial group;
   * ``init_weights``: fresh weights drawn as flax's default initializers
     draw them (``models/init.py``).
 """
@@ -30,6 +36,7 @@ from v2x_sim_tpu_torch.configs.config import Config
 from v2x_sim_tpu_torch.models.init import init_flax_defaults_
 from v2x_sim_tpu_torch.models.seg.unet import SegModel, SegOutput
 from v2x_sim_tpu_torch.parallel.mesh import all_reduce_, average_, psum, sum_metrics
+from v2x_sim_tpu_torch.parallel.spatial import gather_rows, take_rows
 from v2x_sim_tpu_torch.train.det_module import (
     LearningRate,
     adam,
@@ -58,6 +65,8 @@ class SegModule:
       width_mult, depth: SegModel's.
       process_group: the data-parallel group the step's sums run over;
         None steps alone.
+      spatial_group: the group the BEV rows are sharded over; None: whole
+        maps.
     """
 
     def __init__(
@@ -70,15 +79,18 @@ class SegModule:
         width_mult: float = 1.0,
         depth: int = 4,
         process_group=None,
+        spatial_group=None,
     ):
         self.config = config
         self.mode = mode
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
-        self.model = SegModel(config, mode, width_mult, depth).to(
+        self.model = SegModel(config, mode, width_mult, depth, spatial_group).to(
             self.device, memory_format=torch.channels_last)
         self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
-        self.process_group = process_group
+        self.spatial_group = spatial_group
+        #: What the step's sums run over: the spatial group, then the data group.
+        self.groups = tuple(g for g in (spatial_group, process_group) if g is not None) or None
         self.model.set_process_group(process_group)
         self.learning_rate = learning_rate
         self.optimizer = adam(self.model.parameters(), learning_rate)
@@ -106,12 +118,17 @@ class SegModule:
     @torch.no_grad()
     def prepare_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch on this device with its ``occupancy``: ``occupancy``,
-        ``trans``, ``agent_mask`` and, where given, ``seg_labels``."""
+        ``trans``, ``agent_mask`` and, where given, ``seg_labels``; with a
+        spatial group, this rank's rows of the occupancy and the labels."""
         bt = self.to_device(batch)
         out = {"occupancy": self.model_input(bt), "trans": bt["trans"],
                "agent_mask": bt["agent_mask"]}
         if "seg_labels" in bt:
             out["seg_labels"] = bt["seg_labels"]
+        if self.spatial_group is not None:
+            for key in ("occupancy", "seg_labels"):
+                if key in out:
+                    out[key] = take_rows(out[key], self.spatial_group)
         return out
 
     def masked_labels(self, prepared: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -122,11 +139,10 @@ class SegModule:
     def loss_from_output(self, out: SegOutput, prepared: Mapping[str, torch.Tensor]
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Cross-entropy sum over max(labeled pixel count, 1), the count
-        summed over the process group."""
+        summed over the spatial and the process group."""
         ce_sum, ce_n = seg_cross_entropy_sum(out.logits, self.masked_labels(prepared),
                                              self.config.num_seg_classes)
-        if self.process_group is not None:
-            ce_n = psum(ce_n, self.process_group)
+        ce_n = psum(ce_n, self.groups)
         loss = ce_sum / ce_n.clamp(min=1.0)
         return loss, {"loss": loss}
 
@@ -145,9 +161,9 @@ class SegModule:
         loss, metrics = self.loss(prepared, train=True)
         loss.backward()
         all_reduce_([p.grad for p in self.model.parameters() if p.grad is not None],
-                    self.process_group)
-        metrics = sum_metrics(metrics, self.process_group)
-        average_([b for b in self.model.buffers() if b.is_floating_point()], self.process_group)
+                    self.groups)
+        metrics = sum_metrics(metrics, self.groups)
+        average_([b for b in self.model.buffers() if b.is_floating_point()], self.groups)
         set_scheduled_lr(self.optimizer, self.learning_rate, self.step)
         self.optimizer.step()
         self.step += 1
@@ -156,9 +172,13 @@ class SegModule:
     @torch.inference_mode()
     def eval_step(self, prepared: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """(pred (B, A, H, W) int64, the (C, C) int64 confusion matrix of
-        the batch's real agents' labeled pixels)."""
+        the batch's real agents' labeled pixels); with a spatial group, the
+        whole map's and its confusion, on every rank of the group."""
         am = prepared["agent_mask"].to(torch.bool)
         out = self.model(prepared["occupancy"], prepared["trans"], am)
         pred = out.logits.argmax(dim=-1)
-        return pred, confusion_matrix(pred, self.masked_labels(prepared),
-                                      self.config.num_seg_classes)
+        conf = confusion_matrix(pred, self.masked_labels(prepared), self.config.num_seg_classes)
+        if self.spatial_group is not None:
+            pred = gather_rows(pred, self.spatial_group)
+            all_reduce_([conf], self.spatial_group)
+        return pred, conf
