@@ -23,14 +23,17 @@ Phases, each reported on its own line; any failure exits non-zero:
      times, peak device memory.
   5. Training at full width: prepare_batch (voxelize + sparse anchor
      assignment) then train_step on B=16 scenes. The periodic kernel must
-     launch exactly twice per prepare_batch and the aligned pairs at least
-     once; one scene's assignment and loss must match the port on the
-     CPU; loss and grads stay finite and the loss falls over 8 fp32
-     steps on one batch. Then the assignment's kernels on that batch's
-     own operands, timed and held against the plain version over every
-     pair: the periodic entry on both nearest-GT candidates (2 x 37.7M
-     pairs, exact zeros equal too), the aligned pairs on the forced-anchor
-     test.
+     launch exactly twice per prepare_batch, the forced-anchor entry once
+     and the aligned pairs never; one scene's assignment and loss must
+     match the port on the CPU; loss and grads stay finite and the loss
+     falls over 8 fp32 steps on one batch. Then the assignment's kernels
+     on that batch's own operands, timed and held against the plain
+     version over every pair: the periodic entry on both nearest-GT
+     candidates (2 x 37.7M pairs, exact zeros equal too); the
+     forced-anchor entry (own_iou bit for bit; own_k, force and the cell
+     equal), timed in turns against the chain of launches it replaced and
+     beside an empty launch of its grid; the aligned pairs on the
+     forced-anchor test's pairs.
 
   6. Training timing: train scenes/sec (step only, and prepare + step) in
      fp32 and bf16, per-stage CUDA-event times, peak device memory.
@@ -58,7 +61,7 @@ Phases, each reported on its own line; any failure exits non-zero:
  10. The detection workflow at full width, each tool's main(argv) run in
      this process in a temporary directory: create_data_det --targets 1
      bakes 2 x 16 synthetic frames (the periodic kernel launches exactly
-     twice a frame, the aligned pairs at least once; frame 0's targets
+     twice a frame, the forced-anchor entry once; frame 0's targets
      equal the CPU's bake of it; the frame's assignment kernels timed and
      held against the plain version); train_det trains 2 epochs of 2
      batches from the cache (no assignment launches; epoch_0, epoch_1;
@@ -91,7 +94,7 @@ Phases, each reported on its own line; any failure exits non-zero:
      module. The seg path launches none of the port's kernels.
  12. Visibility input, MGDA training and tracking at full width, through
      the tools' main(argv): (a) create_data_det --vis 1 --targets 1 bakes
-     16 frames (K2 twice a frame, the aligned pairs at least once), frame
+     16 frames (K2 twice a frame, the forced-anchor entry once), frame
      0's int8 vis_maps equal to the CPU's bake in every cell and its
      targets as in phase 10, the bake's s/frame with and without --vis;
      (b) train_det --use_vis 1 --MGDA --kd_flag 1 from that cache, 2
@@ -130,10 +133,10 @@ Phases, each reported on its own line; any failure exits non-zero:
      tests' rules (loss terms rel 1e-5, Adam's first moment 1e-4 of a
      leaf's max, new params 1e-8 where the gradient is clear, running
      stats 1e-8), every rank's parameters, buffers and Adam moments
-     bit-identical to rank 0's, K1 pairs and K2 launched by each rank's
-     prepare_batch; the fp32 DP step's scenes/s (two ranks sharing one
-     card: not a scaling rate) beside one process's on the same card and
-     scenes; (c) in the same ranks, the row-sharded
+     bit-identical to rank 0's, K1's forced-anchor entry and K2 launched
+     by each rank's prepare_batch; the fp32 DP step's scenes/s (two ranks
+     sharing one card: not a scaling rate) beside one process's on the
+     same card and scenes; (c) in the same ranks, the row-sharded
      5-stage encoder (128 of 256 rows a rank) against the unsharded one
      and the sharded stem's SGD step against the unsharded (float64,
      1e-10 of the max); (b) train_det --dp 1 (NCCL) for a step, a
@@ -149,11 +152,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      synchronize around each; the sharded predict against the unsharded
      on the same scenes: in fp32 the gathered heads within 1e-3 and the
      kept sets counted, in float64 the kept sets equal and the scores
-     within 1e-9; K2 twice and K1's pairs once a sharded prepare, K1's
-     matrix in each sharded predict.
+     within 1e-9; K2 twice and K1's forced-anchor entry once a sharded
+     prepare, K1's matrix in each sharded predict.
  15. The last host modules and bf16, at Config(): (a) one scene's dense
      and flat anchor targets (assign_targets_batched(flat=False/True)) on
-     the card against the CPU (K2 twice and K1's pairs at least once a
+     the card against the CPU (K2 twice and the forced-anchor entry once a
      call; labels equal away from the thresholds, targets within 1e-5),
      and the dense smooth-L1 against the sparse one on the same random
      predictions (rel 1e-5); (b) one scene's disco logits in bf16 on the
@@ -347,6 +350,18 @@ class IouWork:
         from v2x_sim_tpu_torch.ops.cuda.iou_cu import OPS_CORNERS
 
         return iou_bound(2 * OPS_CORNERS * self.pairs + self.clip_ops, 44 * self.pairs)
+
+    def forced_bound(self, gts: int):
+        """The forced-anchor entry on `gts` GT rows and these (GT, anchor)
+        pairs: one GT's corners, its own cell and force test a GT; an
+        anchor's corners, the clip and the maximum's step a pair; bytes: the
+        GT and its mask in, each GT's K anchors gathered, own_iou out a
+        pair, own_k, force and the cell out a GT."""
+        from v2x_sim_tpu_torch.ops.cuda.iou_cu import OPS_ARGMAX, OPS_CORNERS, OPS_FORCE, OPS_OWN_CELL
+
+        ops = ((OPS_CORNERS + OPS_OWN_CELL + OPS_FORCE) * gts
+               + (OPS_CORNERS + OPS_ARGMAX) * self.pairs + self.clip_ops)
+        return iou_bound(ops, 21 * gts + 24 * self.pairs + 17 * gts)
 
     def periodic_bound(self, n: int):
         """The periodic entry: both radii and the cull's test on every pair,
@@ -695,10 +710,10 @@ def phase_train(device, cfg, spec, batch_size: int, variables) -> dict:
     prepared = module.prepare_batch(batch)
     metrics = module.train_step(prepared)
     torch.cuda.synchronize()
-    launches = {"periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches,
-                "pairs": iou_cu.rotated_iou_pairs_soa.launches}
-    if device.type == "cuda" and (launches["periodic"] != 2 or launches["pairs"] < 1):
-        raise AssertionError(f"one prepare_batch launched {launches}: want periodic 2, pairs >= 1")
+    launches = {key: n for key, n in _launches().items() if key != "matrix"}
+    if device.type == "cuda" and launches != {"periodic": 2, "forced": 1, "pairs": 0}:
+        raise AssertionError(f"one prepare_batch launched {launches}: want periodic 2, forced 1, "
+                             f"pairs 0")
     if not all(bool(torch.isfinite(p.grad).all()) for p in module.model.parameters()):
         raise AssertionError("non-finite gradients")
     k = cfg.anchors.num_anchors
@@ -781,16 +796,24 @@ def _check_zeros(got, ref, what: str) -> int:
 
 def phase_assign_kernels(device, cfg, batch, card: str, base=None, tag: str = "[5]") -> dict:
     """The assignment's kernels on a batch's own operands: the periodic
-    entry on both nearest-GT candidates (c1, c2) at full size and the
-    aligned-pairs entry on the forced-anchor test, each against the plain
-    version over every pair (in chunks), with its cull counts, and against
-    the baseline build if there is one."""
+    entry on both nearest-GT candidates (c1, c2) at full size, the
+    forced-anchor entry, and the aligned-pairs entry on the forced-anchor
+    test's pairs, each against the plain version over every pair (in
+    chunks), with its cull counts, and against the baseline build if there
+    is one. The forced-anchor entry is also timed in turns against the
+    chain of launches it replaced and against an empty launch."""
     import torch
 
     from v2x_sim_tpu_torch.ops import iou_sh
     from v2x_sim_tpu_torch.ops.anchors import anchor_grid
-    from v2x_sim_tpu_torch.ops.assign import gt_soa, nearest_gt, own_cell, own_cell_pairs
-    from v2x_sim_tpu_torch.ops.cuda import iou_cu
+    from v2x_sim_tpu_torch.ops.assign import (
+        forced_anchor_plain,
+        gt_soa,
+        nearest_gt,
+        own_cell,
+        own_cell_pairs,
+    )
+    from v2x_sim_tpu_torch.ops.cuda import build, iou_cu
 
     anchors = torch.from_numpy(anchor_grid(cfg)).to(device)
     h, w, k, _ = anchors.shape
@@ -835,8 +858,67 @@ def phase_assign_kernels(device, cfg, batch, card: str, base=None, tag: str = "[
                      f"periodic entry on candidate {name}", card)
         del got, ref, b_soa
 
-    # The forced-anchor test: each GT against its own cell's K anchors.
-    gt_op, own_op = own_cell_pairs(gt, anchors, *own_cell(gt, cfg))
+    # The forced-anchor entry: every output against the plain version on
+    # the card (own_iou bit for bit: both round each product alike), then
+    # timed in turns (chain, entry, entry, chain) against the chain of
+    # launches it replaced, and an empty launch of its grid.
+    grid = cfg.grid
+    got = iou_cu.forced_anchor(gt, mask, anchors, grid)
+    want = forced_anchor_plain(gt, mask, anchors, grid)
+    err = float((got[0] - want[0]).abs().max())
+    differ = {name: int((g != v).sum()) for name, g, v in zip(("own_k", "force", "cell"), got[1:], want[1:])}
+    if err != 0.0 or any(differ.values()):
+        raise AssertionError(f"forced-anchor entry vs plain: own_iou max |d| {err}, entries that "
+                             f"differ {differ}")
+    gts = b * m
+
+    def chain():
+        gr, gc = own_cell(gt, grid)
+        own_iou = iou_cu.rotated_iou_pairs_soa(*own_cell_pairs(gt, anchors, gr, gc)).view(b, m, k)
+        return own_iou.argmax(dim=-1), mask & (own_iou.amax(dim=-1) > 0.0), gr * w + gc
+
+    if not all(torch.equal(x, y) for x, y in zip(chain(), got[1:])):
+        raise AssertionError("forced-anchor entry vs the chain it replaced: own_k, force or cell differ")
+    lib = iou_cu.declare(build.load("rotated_iou"))
+    blocks = -(-gts * iou_cu.FORCED_GROUP // iou_cu.FORCED_THREADS)
+    stream = torch.cuda.current_stream().cuda_stream
+    if lib.v2x_empty_launch(blocks, stream) != 0:
+        raise RuntimeError("the empty launch failed")
+    turns = {"chain": [], "entry": []}
+    fns = {"chain": chain, "entry": lambda: iou_cu.forced_anchor(gt, mask, anchors, grid)}
+    for key in ("chain", "entry", "entry", "chain"):
+        turns[key].append(time_ms(fns[key], iters=50))
+    floor_ms = time_ms(lambda: lib.v2x_empty_launch(blocks, stream), iters=50)
+    # The C entry alone, on outputs allocated once: the wrapper's launch
+    # without its checks and allocations.
+    (x0, _), (y0, _) = grid.area_extents[0], grid.area_extents[1]
+    raw_outs = [torch.empty_like(t) for t in got]
+    raw_args = (gt.data_ptr(), mask.data_ptr(), anchors.data_ptr(), x0, y0, grid.voxel_size[0],
+                grid.voxel_size[1], h, w, k, gts, *(t.data_ptr() for t in raw_outs), stream)
+    raw_ms = time_ms(lambda: lib.v2x_forced_anchor(*raw_args), iters=50)
+    if not all(torch.equal(x, y) for x, y in zip(raw_outs, got)):
+        raise AssertionError("the C entry alone wrote other outputs than the wrapper's launch")
+    plain_ms = time_ms(lambda: forced_anchor_plain(gt, mask, anchors, grid), iters=10)
+    work = IouWork(cull=False)
+    work.add(gt[:, :, None, :].expand(b, m, k, 5), anchors[got[3] // w, got[3] % w])
+    bound_ms, bound_by = work.forced_bound(gts)
+    ms, chain_ms = float(np.mean(turns["entry"])), float(np.mean(turns["chain"]))
+    log(f"{tag} forced_anchor {b} x {m} GT x {k} anchors = {work.pairs} pairs ({blocks} blocks of "
+        f"{iou_cu.FORCED_THREADS}): own_iou max_abs_err={err:.3e} over every pair, own_k, force and "
+        f"cell equal to the plain version's and the old chain's; {int(got[2].sum())} of "
+        f"{int(mask.sum())} valid GT force an anchor; kernel "
+        + " ".join(f"{t:.4f}" for t in turns["entry"]) + " ms, the chain it replaced (own_cell, "
+        "own_cell_pairs, the aligned entry, argmax, amax) " + " ".join(f"{t:.4f}" for t in turns["chain"])
+        + f" ms in turns ({chain_ms / ms:.2f}x); the C entry alone {raw_ms:.4f} ms; an empty launch "
+        f"of {blocks} blocks {floor_ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bound_ms:.5f} ms "
+        f"({bound_by}) [{card}]")
+    out["forced"] = {"err": err, "ms": ms, "chain_ms": chain_ms, "raw_ms": raw_ms,
+                     "floor_ms": floor_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+
+    # The aligned-pairs entry on the forced-anchor test's pairs: each GT
+    # against its own cell's K anchors, as field-major operands.
+    gt_op, own_op = own_cell_pairs(gt, anchors, *own_cell(gt, grid))
     pairs = gt_op.shape[1]
     got = iou_cu.rotated_iou_pairs_soa(gt_op, own_op)
     ref = iou_sh.rotated_iou(gt_op.T, own_op.T)
@@ -846,11 +928,14 @@ def phase_assign_kernels(device, cfg, batch, card: str, base=None, tag: str = "[
     cull = IouWork(cull=False)
     cull.add(gt_op.T, own_op.T)
     ms = time_ms(lambda: iou_cu.rotated_iou_pairs_soa(gt_op, own_op), iters=50)
+    raw_out = torch.empty_like(got)
+    raw_ms = time_ms(lambda: lib.v2x_rotated_iou_pairs(gt_op.data_ptr(), own_op.data_ptr(),
+                                                       raw_out.data_ptr(), pairs, stream), iters=50)
     plain_ms = time_ms(lambda: iou_sh.rotated_iou(gt_op.T, own_op.T), iters=10)
     bound_ms, bound_by = cull.pairs_bound()
     log(f"{tag} rotated_iou_pairs {pairs} pairs (the batch's forced-anchor test, padded GT "
-        f"included): max_abs_err={err:.3e}; {cull}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+        f"included): max_abs_err={err:.3e}; {cull}; kernel {ms:.4f} ms, the C entry alone "
+        f"{raw_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
     out["pairs"] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by}
     time_against(base, "v2x_rotated_iou_pairs", (gt_op, own_op), (pairs,), pairs,
@@ -1210,10 +1295,10 @@ def phase_kd(device, cfg, variables, batch, card: str, seed: int = 30) -> dict:
     prepared = module.prepare_batch(batch)
     metrics = module.train_step(prepared)
     torch.cuda.synchronize()
-    launches = {"periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches,
-                "pairs": iou_cu.rotated_iou_pairs_soa.launches}
-    if device.type == "cuda" and (launches["periodic"] != 2 or launches["pairs"] < 1):
-        raise AssertionError(f"KD prepare_batch launched {launches}: want periodic 2, pairs >= 1")
+    launches = {key: n for key, n in _launches().items() if key != "matrix"}
+    if device.type == "cuda" and launches != {"periodic": 2, "forced": 1, "pairs": 0}:
+        raise AssertionError(f"KD prepare_batch launched {launches}: want periodic 2, forced 1, "
+                             f"pairs 0")
     if not all(bool(torch.isfinite(p.grad).all()) for p in module.model.parameters()):
         raise AssertionError("KD: non-finite gradients")
     if "kd_loss" not in metrics:
@@ -1325,11 +1410,14 @@ def _load_npz(path: str) -> dict:
 
 
 def _launches() -> dict:
+    """Each entry point's launch count: "forced" is the forced-anchor entry,
+    "pairs" the aligned-pairs entry, which the main path no longer calls."""
     from v2x_sim_tpu_torch.ops.cuda import iou_cu
 
     return {"matrix": iou_cu.rotated_iou_matrix.launches,
             "pairs": iou_cu.rotated_iou_pairs_soa.launches,
-            "periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches}
+            "periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches,
+            "forced": iou_cu.forced_anchor.launches}
 
 
 def _check_baked_frame(card_path: str, cpu_path: str) -> str:
@@ -1366,7 +1454,7 @@ def phase_workflow(device, cfg, card: str, train_rates: dict) -> dict:
     from v2x_sim_tpu_torch.train.det_module import DetModule
     from v2x_sim_tpu_torch.utils.mean_ap import eval_map_agents
 
-    out = {"launches": {"matrix": 0, "pairs": 0, "periodic": 0}}
+    out = {"launches": {"matrix": 0, "pairs": 0, "periodic": 0, "forced": 0}}
 
     def add_launches(counts):
         for key, v in counts.items():
@@ -1382,9 +1470,9 @@ def phase_workflow(device, cfg, card: str, train_rates: dict) -> dict:
         torch.cuda.synchronize()
         bake = _launches()
         add_launches(bake)
-        if bake["periodic"] != 2 * frames or bake["pairs"] < frames:
+        if bake["periodic"] != 2 * frames or bake["forced"] != frames or bake["pairs"]:
             raise AssertionError(f"baking {frames} frames launched {bake}: want periodic "
-                                 f"{2 * frames}, pairs >= {frames}")
+                                 f"{2 * frames}, forced {frames}, pairs 0")
         _, cpu_s = _run_tool(create_data_det, [
             "--root", "synthetic", "--savepath", os.path.join(tmp, "cpu"), "--scenes", "1",
             "--frames", "1", "--targets", "1", "--cpu"])
@@ -1407,7 +1495,7 @@ def phase_workflow(device, cfg, card: str, train_rates: dict) -> dict:
         torch.cuda.synchronize()
         trained = _launches()
         add_launches(trained)
-        if trained["periodic"] or trained["pairs"]:
+        if trained["periodic"] or trained["pairs"] or trained["forced"]:
             raise AssertionError(f"training from baked targets launched the assignment: {trained}")
         for epoch in (0, 1):
             if not os.path.exists(os.path.join(run, f"epoch_{epoch}")):
@@ -1450,10 +1538,10 @@ def phase_workflow(device, cfg, card: str, train_rates: dict) -> dict:
         live_launches = _launches()
         add_launches(live_launches)
         if (live_launches["periodic"] != 2 * WORKFLOW_LIVE_BATCHES
-                or live_launches["pairs"] < WORKFLOW_LIVE_BATCHES):
+                or live_launches["forced"] != WORKFLOW_LIVE_BATCHES or live_launches["pairs"]):
             raise AssertionError(f"{WORKFLOW_LIVE_BATCHES} live batches launched {live_launches}: "
-                                 f"want periodic {2 * WORKFLOW_LIVE_BATCHES}, pairs >= "
-                                 f"{WORKFLOW_LIVE_BATCHES}")
+                                 f"want periodic {2 * WORKFLOW_LIVE_BATCHES}, forced "
+                                 f"{WORKFLOW_LIVE_BATCHES}, pairs 0")
         with open(os.path.join(live_run, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         step1 = records[0]
@@ -1498,7 +1586,7 @@ def phase_workflow(device, cfg, card: str, train_rates: dict) -> dict:
                 plain_dets = cat
             agents = int(cat["agent_mask"].any(axis=0).sum())
             want = WORKFLOW_EVAL_BATCHES * (2 if late else 1) + 2 * agents
-            if got["matrix"] != want or got["periodic"] or got["pairs"]:
+            if got["matrix"] != want or got["periodic"] or got["pairs"] or got["forced"]:
                 raise AssertionError(f"test_det{' --late_fusion' if late else ''} launched {got}: "
                                      f"want matrix {want} (NMS, late fusion, 2 thresholds x "
                                      f"{agents} agents)")
@@ -1897,7 +1985,7 @@ def _vis_bake(tmp: str, card: str) -> dict:
     from v2x_sim_tpu_torch.ops.cuda import iou_cu
     from v2x_sim_tpu_torch.tools import create_data_det
 
-    out = {"launches": {"matrix": 0, "pairs": 0, "periodic": 0}}
+    out = {"launches": {"matrix": 0, "pairs": 0, "periodic": 0, "forced": 0}}
     rates = {"1": [], "0": []}
     for vis in ("1", "0", "0", "1"):
         iou_cu.reset_launches()
@@ -1908,9 +1996,10 @@ def _vis_bake(tmp: str, card: str) -> dict:
         got = _launches()
         for key, v in got.items():
             out["launches"][key] += v
-        if got["periodic"] != 2 * frames or got["pairs"] < frames or got["matrix"]:
+        if (got["periodic"] != 2 * frames or got["forced"] != frames or got["pairs"]
+                or got["matrix"]):
             raise AssertionError(f"baking {frames} frames (--vis {vis}) launched {got}: want periodic "
-                                 f"{2 * frames}, pairs >= {frames}")
+                                 f"{2 * frames}, forced {frames}, pairs 0")
         rates[vis].append(secs / frames)
     _, cpu_s = _run_tool(create_data_det, [
         "--root", "synthetic", "--savepath", os.path.join(tmp, "cpu"), "--scenes", "1", "--frames",
@@ -2019,7 +2108,7 @@ def _vis_mgda_train(device, cfg, spec, cache: str, card: str, kd_rates: dict) ->
     from v2x_sim_tpu_torch.tools import train_det
     from v2x_sim_tpu_torch.train.det_module import DetModule
 
-    out = {"launches": {"matrix": 0, "pairs": 0, "periodic": 0}}
+    out = {"launches": {"matrix": 0, "pairs": 0, "periodic": 0, "forced": 0}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mgda_") as tmp:
         for label, extra in (("fp32", []), ("bf16", ["--bf16"])):
             iou_cu.reset_launches()
@@ -2079,8 +2168,9 @@ def _vis_mgda_train(device, cfg, spec, cache: str, card: str, kd_rates: dict) ->
     got = _launches()
     for key, v in got.items():
         out["launches"][key] += v
-    if got["periodic"] != 2 or got["pairs"] < 1 or got["matrix"]:
-        raise AssertionError(f"the live MGDA batch launched {got}: want periodic 2, pairs >= 1")
+    if got["periodic"] != 2 or got["forced"] != 1 or got["pairs"] or got["matrix"]:
+        raise AssertionError(f"the live MGDA batch launched {got}: want periodic 2, forced 1, "
+                             f"pairs 0")
     cpu_vis = module.vis_input({k: v[:1].cpu() for k, v in bt.items()})  # scene 0 on the CPU
     differ = int((vis[:1].cpu() != cpu_vis).sum())
     if differ or not np.isfinite(float(metrics["loss"])):
@@ -2167,7 +2257,7 @@ def _vis_track(device, cfg, spec, tmp: str, card: str) -> dict:
         results[where], _ = _run_tool(track, ["--dets", dumps[where]], tag="[12]")
     got = out["launches"]
     want = 1 + 2 * cfg.num_agents
-    if got["matrix"] != want or got["pairs"] or got["periodic"]:
+    if got["matrix"] != want or got["pairs"] or got["periodic"] or got["forced"]:
         raise AssertionError(f"test_det --use_vis 1 launched {got}: want matrix {want} (NMS, 2 "
                              f"thresholds x {cfg.num_agents} agents)")
     card_z, cpu_z = (_load_npz(os.path.join(dumps[w], "dets_00000.npz")) for w in ("card", "cpu"))
@@ -2331,7 +2421,7 @@ def phase_tools(device, card: str) -> dict:
 
     cpu = ["--cpu"] if device.type == "cpu" else []
     grid = ["--grid", TOOLS_GRID, "--agents", "6"] + cpu
-    total = {"matrix": 0, "pairs": 0, "periodic": 0}
+    total = {"matrix": 0, "pairs": 0, "periodic": 0, "forced": 0}
     out = {}
 
     def run(tool, argv, check=lambda c: True):
@@ -2369,7 +2459,8 @@ def phase_tools(device, card: str) -> dict:
                 str(TOOLS_POOL), "--bake_pool", "1", "--cosine", "--eval_at", "2", "--eval_batches",
                 "1", "--save_states", states, "--out", table],
                 check=lambda c: c["periodic"] == 2 * TOOLS_POOL + 2 * len(TOOLS_MODES)
-                and c["pairs"] >= TOOLS_POOL + len(TOOLS_MODES) and c["matrix"] > 0)
+                and c["forced"] == TOOLS_POOL + len(TOOLS_MODES) and not c["pairs"]
+                and c["matrix"] > 0)
         finally:
             bench_table._bake_pool_targets = bake
         if device.type == "cuda" and [c["periodic"] for c in bake_counts] != [2 * TOOLS_POOL]:
@@ -2690,7 +2781,8 @@ def _dp_rank(rank: int, world: int, init_method: str, cfg, spec, batch_size: int
         torch.cuda.empty_cache()
     dist.barrier()
     out["launches"] = {"pairs": iou_cu.rotated_iou_pairs_soa.launches,
-                       "periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches}
+                       "periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches,
+                       "forced": iou_cu.forced_anchor.launches}
     smesh = make_mesh(world, spatial=world, backend="gloo", device=device)
     out["spatial"] = _dp_spatial(smesh, cfg, batch, DP_SEED)
     out["peak_gib"] = (torch.cuda.max_memory_allocated(mesh.device) / 2**30
@@ -2718,7 +2810,8 @@ def _dp_tool(card: str) -> dict:
         iou_cu.reset_launches()
         _, secs0 = _run_tool(train_det, argv + ["--logpath", one], tag="[14]")
         launches = {"pairs": iou_cu.rotated_iou_pairs_soa.launches,
-                    "periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches}
+                    "periodic": iou_cu.rotated_iou_pairs_soa_periodic.launches,
+                    "forced": iou_cu.forced_anchor.launches}
         whole, secs1 = _run_tool(train_det, argv + ["--dp", "1", "--logpath", dp], tag="[14]")
         os.makedirs(res)
         shutil.copy(os.path.join(dp, "epoch_0"), res)
@@ -2823,7 +2916,7 @@ def _spatial_rank(rank: int, world: int, init_method: str, cfg, spec, device: st
     groups = {"process_group": mesh.data_group, "spatial_group": mesh.spatial_group}
     small, batch = ({k: v for k, v in generate_batch(cfg, spec, b, seed=DP_SEED).items()
                      if k != "visible"} for b in (SPATIAL_CHECK_BATCH, BATCH))
-    launches = {"pairs": 0, "periodic": 0, "matrix": 0}
+    launches = {"pairs": 0, "periodic": 0, "matrix": 0, "forced": 0}
 
     def sync():
         if mesh.device.type == "cuda":
@@ -2834,6 +2927,7 @@ def _spatial_rank(rank: int, world: int, init_method: str, cfg, spec, device: st
         iou_cu.reset_launches()
         result = fn(*args)
         launches["pairs"] += iou_cu.rotated_iou_pairs_soa.launches
+        launches["forced"] += iou_cu.forced_anchor.launches
         launches["periodic"] += iou_cu.rotated_iou_pairs_soa_periodic.launches
         launches["matrix"] += iou_cu.rotated_iou_matrix.launches
         return result
@@ -3014,11 +3108,12 @@ def _spatial(device, cfg, spec, card: str) -> dict:
         f"{f32['d_scores']:.2e}. float64, {SPATIAL_CHECK_BATCH // 2} scenes a data rank: heads "
         f"within {f64['d_logit']:.2e}, kept sets equal at all {f64['agents']} pairs "
         f"({f64['kept']} kept), scores within {f64['d_scores']:.2e}")
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("pairs", "periodic", "matrix")}
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("pairs", "periodic", "matrix", "forced")}
     prepares = len(SPATIAL_CASES) + 1  # a rank's sharded prepares: the float64 cases, the fp32
     if device.type == "cuda" and any(
-            r["launches"]["periodic"] < 2 * prepares or r["launches"]["pairs"] < prepares
-            or r["launches"]["matrix"] < 2 for r in ranks):
+            r["launches"]["periodic"] < 2 * prepares or r["launches"]["forced"] < prepares
+            or r["launches"]["pairs"] or r["launches"]["matrix"] < 2 for r in ranks):
         raise AssertionError(f"the sharded ranks' K1/K2 launches: {[r['launches'] for r in ranks]}")
     log(f"[14] (d) kernel launches on the sharded path (all 4 ranks): {launches}; ranks "
         f"{secs:.1f} s in all")
@@ -3076,18 +3171,18 @@ def phase_dp(device, cfg, spec, card: str) -> dict:
         f"5 stages, float64: "
         f"{sp['encoder']:.2e} of each level's max from the unsharded STPNEncoder; stem SGD step: "
         f"loss rel {sp['stem_loss']:.2e}, state {sp['stem_state']:.2e}; ranks {secs:.1f} s in all")
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("pairs", "periodic")}
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("pairs", "periodic", "forced")}
     if device.type == "cuda":
         tool = _dp_tool(card)
         launches = {k: launches[k] + tool[k] for k in launches}
         per_rank = len(DP_CASES) + 1  # prepares a rank: the DP cases and the timed fp32 step
-        if any(r["launches"]["periodic"] < 2 * per_rank or r["launches"]["pairs"] < per_rank
-               for r in ranks):
+        if any(r["launches"]["periodic"] < 2 * per_rank or r["launches"]["forced"] < per_rank
+               or r["launches"]["pairs"] for r in ranks):
             raise AssertionError(f"the ranks' K1/K2 launches: {[r['launches'] for r in ranks]}")
     log(f"[14] kernel launches (both ranks, and the --dp 0 run of (b)): {launches}")
     sharded = _spatial(device, cfg, spec, card)
     launches = {"matrix": sharded["matrix"],
-                **{k: launches[k] + sharded[k] for k in ("pairs", "periodic")}}
+                **{k: launches[k] + sharded[k] for k in ("pairs", "periodic", "forced")}}
     return {"launches": launches}
 
 
@@ -3228,7 +3323,7 @@ def _layouts_vs_cpu(device, cfg, batch, card: str) -> dict:
     from v2x_sim_tpu_torch.train.det_module import DetModule
     from v2x_sim_tpu_torch.utils.losses import smooth_l1_loss_sparse_sum, smooth_l1_loss_sum
 
-    total = {"matrix": 0, "pairs": 0, "periodic": 0}
+    total = {"matrix": 0, "pairs": 0, "periodic": 0, "forced": 0}
     gt, mask = torch.from_numpy(batch["gt_boxes"][0]), torch.from_numpy(batch["gt_mask"][0])
     anchors = torch.from_numpy(anchor_grid(cfg))
     thr = torch.tensor([cfg.anchors.neg_iou_threshold, cfg.anchors.pos_iou_threshold])
@@ -3241,8 +3336,10 @@ def _layouts_vs_cpu(device, cfg, batch, card: str) -> dict:
         launches = _launches()
         for key in total:
             total[key] += launches[key]
-        if launches["periodic"] != 2 or launches["pairs"] < 1 or launches["matrix"]:
-            raise AssertionError(f"flat={flat}: launched {launches}: want periodic 2, pairs >= 1")
+        if (launches["periodic"] != 2 or launches["forced"] != 1 or launches["pairs"]
+                or launches["matrix"]):
+            raise AssertionError(f"flat={flat}: launched {launches}: want periodic 2, forced 1, "
+                                 f"pairs 0")
         got = [t.cpu() for t in got]
         near = ((want.best_iou[..., None] - thr).abs() <= NEAR_THRESHOLD).any(-1)
         differ = got[0] != want.labels
@@ -3354,7 +3451,7 @@ def _nuscenes_root_tools(cfg, card: str) -> dict:
     from v2x_sim_tpu_torch.ops.cuda import iou_cu
     from v2x_sim_tpu_torch.tools import create_data_det, create_data_seg, test_det, train_det
 
-    total = {"matrix": 0, "pairs": 0, "periodic": 0}
+    total = {"matrix": 0, "pairs": 0, "periodic": 0, "forced": 0}
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "nusc")
         write_synthetic_nuscenes(root, cfg, SyntheticSpec(points_per_agent=8192, max_gt=32),
@@ -3381,7 +3478,8 @@ def _nuscenes_root_tools(cfg, card: str) -> dict:
             if name.startswith("create_data"):
                 ok, what = result == NUSC_FRAMES, f"{result} frames"
                 if name == "create_data_det":
-                    ok &= launches["periodic"] == 2 * NUSC_FRAMES and launches["pairs"] >= NUSC_FRAMES
+                    ok &= (launches["periodic"] == 2 * NUSC_FRAMES
+                           and launches["forced"] == NUSC_FRAMES and not launches["pairs"])
             elif name == "train_det":
                 loss = float(result.metrics["loss"])
                 ok, what = result.step == 1 and np.isfinite(loss), f"step {result.step}, loss {loss:.4f}"
@@ -3514,7 +3612,9 @@ def main() -> int:
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"
     # Times and bounds on the main path's own operands: predict's NMS
-    # candidates; the training batch's forced-anchor test; the mean of the
+    # candidates; the training batch's forced-anchor test (through the
+    # forced-anchor entry, and through the aligned-pairs entry, which the
+    # main path no longer launches: its count is 0); the mean of the
     # periodic entry's two launches (candidates c1 and c2). Launches and
     # errors include late fusion's and the workflow's (phase 10), whose
     # times are on the [8] and [10] lines; launches also phases 12's, 13's,
@@ -3544,6 +3644,19 @@ def main() -> int:
         "plain_ms": assign["pairs"]["plain_ms"],
         "bound_ms": assign["pairs"]["bound_ms"],
         "bound_by": assign["pairs"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "forced_anchor",
+        "route": "cuda",
+        "source": source,
+        "replaces": "v2x_sim_tpu/ops/pallas/iou_pl.py:149",
+        "launches": (train["launches"]["forced"] + flow["launches"]["forced"] + vis["forced"]
+                     + tools["forced"] + dp["forced"] + p15["forced"]),
+        "max_abs_err": max(assign["forced"]["err"], bake["forced"]["err"]),
+        "ms": assign["forced"]["ms"],
+        "plain_ms": assign["forced"]["plain_ms"],
+        "bound_ms": assign["forced"]["bound_ms"],
+        "bound_by": assign["forced"]["bound_by"],
         "library_ms": None,
     }, {
         "name": "rotated_iou_pairs_periodic",

@@ -1,6 +1,7 @@
-"""The rotated-IoU kernel wrapper (ops/cuda/iou_cu.py), all three entry
+"""The rotated-IoU kernel wrapper (ops/cuda/iou_cu.py), all four entry
 points: their CPU route, their input checks, and — on a CUDA card only —
-the CUDA kernel against the plain PyTorch version.
+the CUDA kernel against the plain PyTorch version (the forced-anchor
+entry's CPU cases are in tests/test_torch_forced_anchor.py).
 
 This file imports neither JAX nor tests/conftest.py's setup, so it runs
 on the card's machine, which has no JAX:
@@ -273,9 +274,9 @@ def test_device_prefetch_stages_on_a_side_stream(cuda_device):
 @pytest.mark.parametrize("flat", [False, True], ids=["dense", "flat"])
 def test_dense_and_flat_assignment_on_card(cuda_device, flat):
     """The dense and flat layouts of ``assign_targets_batched`` on the card
-    (K2 twice, K1's aligned pairs at least once) against the same call on
-    the CPU (the plain versions): labels equal away from the thresholds,
-    targets and IoU within 1e-5."""
+    (K2 twice, the forced-anchor entry once, the aligned pairs never)
+    against the same call on the CPU (the plain versions): labels equal
+    away from the thresholds, targets and IoU within 1e-5."""
     from v2x_sim_tpu_torch.configs.config import Config, GridConfig
     from v2x_sim_tpu_torch.ops.anchors import anchor_grid
     from v2x_sim_tpu_torch.ops.assign import assign_targets_batched
@@ -295,7 +296,7 @@ def test_dense_and_flat_assignment_on_card(cuda_device, flat):
                                  flat=flat)
     torch.cuda.synchronize()
     assert iou_cu.rotated_iou_pairs_soa_periodic.launches == 2
-    assert iou_cu.rotated_iou_pairs_soa.launches >= 1
+    assert (iou_cu.forced_anchor.launches, iou_cu.rotated_iou_pairs_soa.launches) == (1, 0)
     got = [t.cpu() for t in got]
     iou = want.best_iou
     near = ((iou - 0.2).abs() <= 1e-4) | ((iou - 0.4).abs() <= 1e-4)
@@ -308,3 +309,49 @@ def test_dense_and_flat_assignment_on_card(cuda_device, flat):
     np.testing.assert_allclose(reg_g[same], reg_w[same], atol=1e-5, rtol=0)
     np.testing.assert_array_equal(got[2].numpy()[same], want.reg_mask.numpy()[same])
     np.testing.assert_allclose(got[3].numpy(), iou.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_forced_anchor_kernel_matches_plain_on_card(cuda_device):
+    """The forced-anchor entry against its plain version on the card, at
+    the production grid: B=16 scenes x 6 agents x 32 GT, and a batch of
+    edge cases (GT on cell borders and one float32 step off them, on and
+    beyond the extents, so far out that every IoU is 0, padded GT). Every
+    pair's IoU bit for bit (both round each product as the other does),
+    own_k, force and the cell equal; one launch a call."""
+    from v2x_sim_tpu_torch.configs.config import Config
+    from v2x_sim_tpu_torch.ops.anchors import anchor_grid
+    from v2x_sim_tpu_torch.ops.assign import forced_anchor_plain
+
+    cfg = Config()
+    grid = cfg.grid
+    anchors = torch.from_numpy(anchor_grid(cfg)).to(cuda_device)
+    rng = np.random.default_rng(14)
+    gt = _random_boxes(rng, 96 * 32, spread=30.0).reshape(96, 32, 5)
+    mask = rng.random((96, 32)) < 0.6
+    gt[~mask] = 0.0
+    (x0, x1), (y0, y1) = grid.area_extents[0], grid.area_extents[1]
+    border = np.float32(x0) + np.arange(0, 257, 16, dtype=np.float32) * np.float32(grid.voxel_size[0])
+    xs = np.concatenate([border, np.nextafter(border, np.float32(-np.inf)),
+                         np.nextafter(border, np.float32(np.inf)),
+                         np.float32([x1 + 3.0, x0 - 2.0, x1 + 500.0, 0.0])])
+    edge = _random_boxes(rng, xs.size)[None]
+    edge[0, :, 0], edge[0, :, 1] = xs, xs[::-1]
+    edge[0, -1, 1] = y0 - 800.0
+    edge_mask = np.ones(edge.shape[:2], bool)
+    edge[0, -6:-3] = 0.0
+    edge_mask[0, -6:-3] = False
+    for boxes, valid in ((gt, mask), (edge, edge_mask)):
+        tg = torch.from_numpy(boxes).to(cuda_device)
+        tm = torch.from_numpy(valid).to(cuda_device)
+        launches = iou_cu.forced_anchor.launches
+        got = iou_cu.forced_anchor(tg, tm, anchors, grid)
+        torch.cuda.synchronize()
+        assert iou_cu.forced_anchor.launches == launches + 1
+        want = forced_anchor_plain(tg, tm, anchors, grid)
+        for name, g, w in zip(("own_iou", "own_k", "force", "cell"), got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.equal(g, w), f"{name}: {int((g != w).sum())} entries differ"
+    assert bool(got[2].any()) and not bool(got[2][~tm].any())
+    with pytest.raises(TypeError):
+        iou_cu.forced_anchor(tg, tm.to(torch.uint8), anchors, grid)

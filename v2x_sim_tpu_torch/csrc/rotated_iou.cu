@@ -35,8 +35,8 @@
 //    warp); after a barrier the clip phase runs the queue densely, so no
 //    lane idles on a culled pair while others clip. One launch, no host
 //    synchronisation. The aligned-pairs entry clips one pair a thread with
-//    no cull: its only operands on the main path, the forced-anchor test,
-//    all overlap.
+//    no cull, from field-major (5, N) operands: K1's literal counterpart,
+//    which the main path no longer calls (5. replaced it there).
 // 3. Clip. The polygon lives in this thread's slots in shared memory,
 //    laid out [slot][threadIdx.x]: the row stride is a multiple of 32
 //    words, so the bank is threadIdx.x % 32 whatever the slot, and two
@@ -53,6 +53,31 @@
 // 4. The matrix entry stages each tile's row and column boxes (corners,
 //    area, centre, radius) in shared memory once, so no pair evaluates
 //    sinf/cosf.
+// 5. The forced-anchor entry replaces K1 (iou_pl.py:121, pallas_call
+//    :149) where the main path reached it: iou_pl.py:175 rotated_iou, from
+//    the JAX package's ops/assign.py:269, each GT of the (B, M) padded set
+//    against the K anchor shapes of its own BEV cell. The TPU wanted those
+//    pairs as field-major (5, B*M*K) operands; built in PyTorch around the
+//    aligned-pairs entry they took ~20 small launches (own cell, repeat,
+//    two transposes, the anchor gather, argmax, amax, the mask). This entry
+//    takes the assignment's own operands, (B, M, 5) GT, the (B, M) mask and
+//    the (H, W, K, 5) anchor table, and does all of it in one launch:
+//    kGroup = 8 lanes a GT, one (GT, anchor shape) pair a lane (K <= 8);
+//    the GT row loaded once a group (5 lanes, shared by shuffles), its own
+//    cell computed in every lane, the lane's anchor gathered from the
+//    table, the IoU through the same make_quad/iou code as every entry,
+//    then the first index of the maximum by a butterfly of __shfl_xor_sync
+//    (the lower index wins ties, as torch.argmax and jnp.argmax), and
+//    force = mask & (max > 0). Outputs own_iou (B, M, K), own_k, force and
+//    the cell's flat index (B, M). What bounds it: at B=16 (96 x 32 GT, K
+//    = 6) the work is 18,432 clips, ~7 M counted operations and ~0.56 MB
+//    (the GT, the mask, the K anchors of each GT's cell in; the four
+//    outputs), as chip_smoke.py::IouWork counts them: ~0.2 us at the
+//    card's peaks, far under one launch's latency. So the design removes
+//    launches and latency: one launch in place of ~20,
+//    blocks of 128 threads (16 GT) so that 24,576 lanes make 192 blocks
+//    over the 132 SMs where the aligned entry's 72 blocks of 256 left 60
+//    SMs idle, and no pass over an intermediate in device memory.
 //
 // Built without --use_fast_math: parity with the plain version needs the
 // precise sinf/cosf and IEEE division.
@@ -88,7 +113,11 @@
 // end) the clip costs 448 + 41 = 489. The periodic entry computes both
 // boxes' radii for every pair and their corners for every pair it clips;
 // the matrix entry stages corners and radii once a box of its tile; the
-// aligned-pairs entry computes both boxes' corners for every pair.
+// aligned-pairs entry computes both boxes' corners for every pair, and so
+// does the forced-anchor entry, whose work as counted is one GT's corners
+// (its lanes repeat them rather than share them), its own cell (2 x sub,
+// div, floor, 2 clamps; the flat index's mul and add: 12) and, a pair,
+// the maximum's compare and select (2), plus the force test (2) a GT.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -151,8 +180,10 @@ __device__ __forceinline__ bool circles_apart(float ax, float ay, float ra, floa
 
 // One clip stage: the polygon of `count` vertices in (px, py), clipped by
 // the half-plane left of the edge (ea_x, ea_y) -> (eb_x, eb_y), into
-// (qx, qy). Slot k of a buffer is at [k * kThreads]. Returns the number of
-// valid stream entries (those past slot 7 are dropped).
+// (qx, qy). Slot k of a buffer is at [k * kStride], kStride being the
+// block's thread count. Returns the number of valid stream entries (those
+// past slot 7 are dropped).
+template <int kStride = kThreads>
 __device__ __forceinline__ int clip_stage(float ea_x, float ea_y, float eb_x, float eb_y, int count,
                                           const float* px, const float* py, float* qx, float* qy) {
   const int nv = min(count, kSlots);
@@ -161,8 +192,8 @@ __device__ __forceinline__ int clip_stage(float ea_x, float ea_y, float eb_x, fl
 #pragma unroll
   for (int i = 0; i < kSlots; ++i) {
     if (i < nv) {
-      const bool side = __fsub_rn(__fmul_rn(ex, py[i * kThreads] - ea_y),
-                                  __fmul_rn(ey, px[i * kThreads] - ea_x)) >= -kEps;
+      const bool side = __fsub_rn(__fmul_rn(ex, py[i * kStride] - ea_y),
+                                  __fmul_rn(ey, px[i * kStride] - ea_x)) >= -kEps;
       in |= static_cast<unsigned>(side) << i;
     }
   }
@@ -172,15 +203,15 @@ __device__ __forceinline__ int clip_stage(float ea_x, float ea_y, float eb_x, fl
   for (unsigned c = in ^ next; c != 0u; c &= c - 1u) {
     const int i = __ffs(c) - 1;
     const int j = i + 1 == nv ? 0 : i + 1;
-    const float xi = px[i * kThreads], yi = py[i * kThreads];
-    const float dx = px[j * kThreads] - xi, dy = py[j * kThreads] - yi;
+    const float xi = px[i * kStride], yi = py[i * kStride];
+    const float dx = px[j * kStride] - xi, dy = py[j * kStride] - yi;
     const float denom = __fsub_rn(__fmul_rn(ex, dy), __fmul_rn(ey, dx));
     if (fabsf(denom) > kEps) {
       const float t = __fsub_rn(__fmul_rn(ex, ea_y - yi), __fmul_rn(ey, ea_x - xi)) / denom;
       const int pos = __popc(in & ((2u << i) - 1u)) + __popc(crossed);
       if (pos < kSlots) {
-        qx[pos * kThreads] = __fadd_rn(xi, __fmul_rn(t, dx));
-        qy[pos * kThreads] = __fadd_rn(yi, __fmul_rn(t, dy));
+        qx[pos * kStride] = __fadd_rn(xi, __fmul_rn(t, dx));
+        qy[pos * kStride] = __fadd_rn(yi, __fmul_rn(t, dy));
       }
       crossed |= 1u << i;
     }
@@ -190,8 +221,8 @@ __device__ __forceinline__ int clip_stage(float ea_x, float ea_y, float eb_x, fl
     const unsigned below = (1u << i) - 1u;
     const int pos = __popc(in & below) + __popc(crossed & below);
     if (pos < kSlots) {
-      qx[pos * kThreads] = px[i * kThreads];
-      qy[pos * kThreads] = py[i * kThreads];
+      qx[pos * kStride] = px[i * kStride];
+      qy[pos * kStride] = py[i * kStride];
     }
   }
   return __popc(in) + __popc(crossed);
@@ -199,17 +230,18 @@ __device__ __forceinline__ int clip_stage(float ea_x, float ea_y, float eb_x, fl
 
 // Area of quad a clipped by quad b's 4 edges. (px, py) and (qx, qy) are
 // this thread's two slot buffers; the stages ping-pong between them.
+template <int kStride = kThreads>
 __device__ __forceinline__ float intersection(const Quad& a, const Quad& b, float* px, float* py,
                                               float* qx, float* qy) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    px[i * kThreads] = a.x[i];
-    py[i * kThreads] = a.y[i];
+    px[i * kStride] = a.x[i];
+    py[i * kStride] = a.y[i];
   }
-  int count = clip_stage(b.x[0], b.y[0], b.x[1], b.y[1], 4, px, py, qx, qy);
-  count = clip_stage(b.x[1], b.y[1], b.x[2], b.y[2], count, qx, qy, px, py);
-  count = clip_stage(b.x[2], b.y[2], b.x[3], b.y[3], count, px, py, qx, qy);
-  count = clip_stage(b.x[3], b.y[3], b.x[0], b.y[0], count, qx, qy, px, py);
+  int count = clip_stage<kStride>(b.x[0], b.y[0], b.x[1], b.y[1], 4, px, py, qx, qy);
+  count = clip_stage<kStride>(b.x[1], b.y[1], b.x[2], b.y[2], count, qx, qy, px, py);
+  count = clip_stage<kStride>(b.x[2], b.y[2], b.x[3], b.y[3], count, px, py, qx, qy);
+  count = clip_stage<kStride>(b.x[3], b.y[3], b.x[0], b.y[0], count, qx, qy, px, py);
 
   const int nv = min(count, kSlots);
   float area2 = 0.0f;
@@ -219,8 +251,8 @@ __device__ __forceinline__ float intersection(const Quad& a, const Quad& b, floa
   for (int i = 0; i < kSlots; ++i) {
     if (i < nv) {
       const bool last = i + 1 == nv;
-      const float xj = last ? x0 : px[((i + 1) % kSlots) * kThreads];
-      const float yj = last ? y0 : py[((i + 1) % kSlots) * kThreads];
+      const float xj = last ? x0 : px[((i + 1) % kSlots) * kStride];
+      const float yj = last ? y0 : py[((i + 1) % kSlots) * kStride];
       area2 = __fadd_rn(area2, __fsub_rn(__fmul_rn(xi, yj), __fmul_rn(xj, yi)));
       xi = xj;
       yi = yj;
@@ -229,10 +261,11 @@ __device__ __forceinline__ float intersection(const Quad& a, const Quad& b, floa
   return count >= 3 ? 0.5f * fabsf(area2) : 0.0f;
 }
 
+template <int kStride = kThreads>
 __device__ __forceinline__ float iou(const Quad& a, const Quad& b, float* slots) {
   float* s = slots + threadIdx.x;
-  const float inter =
-      intersection(a, b, s, s + kSlots * kThreads, s + 2 * kSlots * kThreads, s + 3 * kSlots * kThreads);
+  const float inter = intersection<kStride>(a, b, s, s + kSlots * kStride, s + 2 * kSlots * kStride,
+                                            s + 3 * kSlots * kStride);
   return inter / fmaxf(__fsub_rn(__fadd_rn(a.area, b.area), inter), kEps);
 }
 
@@ -384,6 +417,77 @@ rotated_iou_pairs_periodic_kernel(const float* __restrict__ a, const float* __re
                              static_cast<int>(left < kTile ? left : kTile));
 }
 
+// (d) The forced-anchor test on the assignment's own operands: GT g of the
+// (G, 5) array against the K anchors of its own BEV cell in the (H, W, K,
+// 5) table, one (GT, anchor shape) pair a lane, kGroup lanes a GT.
+constexpr int kGroup = 8;
+constexpr int kForcedThreads = 128;
+
+// True when (v, i) comes first in torch.argmax's order: the larger value
+// (NaN the largest), the lower index on ties.
+__device__ __forceinline__ bool argmax_first(float v, int i, float u, int j) {
+  const bool vn = isnan(v), un = isnan(u);
+  if (vn != un) return vn;
+  if (vn || v == u) return i < j;
+  return v > u;
+}
+
+// The own cell along one axis, as ops/assign.py::own_cell computes it on
+// the CPU: floor((c - lo) / size) in float32 with IEEE division, clamped
+// into [0, cells - 1] (in float, so that a NaN lands in cell 0 as torch's
+// cast and clamp put it).
+__device__ __forceinline__ int64_t own_index(float c, float lo, float size, int64_t cells) {
+  const float f = floorf(__fdiv_rn(__fsub_rn(c, lo), size));
+  return static_cast<int64_t>(fminf(fmaxf(f, 0.0f), static_cast<float>(cells - 1)));
+}
+
+__global__ void __launch_bounds__(kForcedThreads)
+rotated_iou_forced_anchor_kernel(const float* __restrict__ gt, const bool* __restrict__ gt_mask,
+                                 const float* __restrict__ anchors, float x0, float y0, float vx,
+                                 float vy, int64_t h, int64_t w, int k, int64_t gts,
+                                 float* __restrict__ own_iou, int64_t* __restrict__ own_k,
+                                 bool* __restrict__ force, int64_t* __restrict__ cell) {
+  __shared__ float slots[4 * kSlots * kForcedThreads];
+  const int64_t g = (static_cast<int64_t>(blockIdx.x) * kForcedThreads + threadIdx.x) / kGroup;
+  const int lane = threadIdx.x % kGroup;  // the anchor shape
+  const bool live = g < gts;              // the same for the whole group
+  // The GT row, loaded once a group: lane f < 5 reads field f.
+  const float field = live && lane < 5 ? gt[g * 5 + lane] : 0.0f;
+  float box[5];
+#pragma unroll
+  for (int f = 0; f < 5; ++f) box[f] = __shfl_sync(0xffffffffu, field, f, kGroup);
+  const int64_t own = own_index(box[0], x0, vx, h) * w + own_index(box[1], y0, vy, w);
+  float v = -CUDART_INF_F;
+  if (live && lane < k) {
+    const float* a = anchors + (own * k + lane) * 5;
+    v = iou<kForcedThreads>(make_quad(box[0], box[1], box[2], box[3], box[4]),
+                            make_quad(a[0], a[1], a[2], a[3], a[4]), slots);
+    own_iou[g * k + lane] = v;
+  }
+  // The group's first maximum: a butterfly over the kGroup lanes, every
+  // step keeping the pair that comes first (the order is total, so each
+  // lane ends with the group's argmax). Idle lanes hold -inf and an index
+  // >= k, so they never come first.
+  int best = lane;
+#pragma unroll
+  for (int step = kGroup / 2; step > 0; step /= 2) {
+    const float u = __shfl_xor_sync(0xffffffffu, v, step, kGroup);
+    const int j = __shfl_xor_sync(0xffffffffu, best, step, kGroup);
+    if (argmax_first(u, j, v, best)) {
+      v = u;
+      best = j;
+    }
+  }
+  if (live && lane == 0) {
+    own_k[g] = best;
+    force[g] = gt_mask[g] && v > 0.0f;
+    cell[g] = own;
+  }
+}
+
+// Nothing: a launch's own cost, timed beside the entries in chip_smoke.py.
+__global__ void empty_kernel() {}
+
 int64_t ceil_div(int64_t x, int64_t y) { return (x + y - 1) / y; }
 
 constexpr int64_t kMaxBlocks = 2147483647;
@@ -424,6 +528,26 @@ int v2x_rotated_iou_pairs_periodic(const float* a, const float* b, float* out, i
   if (blocks > kMaxBlocks) return kGridTooLarge;
   rotated_iou_pairs_periodic_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                                       static_cast<cudaStream_t>(stream)>>>(a, b, out, n, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gts = B * M GT rows, 1 <= k <= 8; own_iou (gts, k), own_k, force, cell (gts,).
+int v2x_forced_anchor(const float* gt, const bool* gt_mask, const float* anchors, float x0,
+                      float y0, float vx, float vy, int64_t h, int64_t w, int k, int64_t gts,
+                      float* own_iou, int64_t* own_k, bool* force, int64_t* cell, void* stream) {
+  const int64_t blocks = ceil_div(gts * kGroup, kForcedThreads);
+  if (blocks > kMaxBlocks) return kGridTooLarge;
+  rotated_iou_forced_anchor_kernel<<<static_cast<unsigned>(blocks), kForcedThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      gt, gt_mask, anchors, x0, y0, vx, vy, h, w, k, gts, own_iou, own_k, force, cell);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel on `blocks` blocks of the forced-anchor entry's size.
+int v2x_empty_launch(int64_t blocks, void* stream) {
+  if (blocks < 1 || blocks > kMaxBlocks) return kGridTooLarge;
+  empty_kernel<<<static_cast<unsigned>(blocks), kForcedThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

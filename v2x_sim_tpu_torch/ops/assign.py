@@ -11,8 +11,10 @@ format of baked caches (``labels_from_sparse_idx``, ``sparse_label_idx``,
   2. exact rotated IoU of every anchor against both candidates: the
      (5, n) anchor table against (5, B*n) looked-up GT boxes, one launch
      of the periodic CUDA entry point per candidate (``ops/cuda/iou_cu.py``);
-  3. each GT's best anchor shape at its own cell (the aligned-pairs entry
-     point) is forced positive unless some GT already makes it positive;
+  3. each GT's best anchor shape at its own cell is forced positive
+     unless some GT already makes it positive: the own cell, the IoU of
+     the GT against its K anchors and their first maximum in one launch of
+     the forced-anchor entry point (``iou_cu.forced_anchor``);
   4. labels, and regression targets: at every anchor (dense and flat), or
      at the top-Pc positive cells' K anchors only (sparse, the training
      path's layout).
@@ -30,7 +32,8 @@ from typing import NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
-from v2x_sim_tpu_torch.configs.config import Config
+from v2x_sim_tpu_torch.configs.config import Config, GridConfig
+from v2x_sim_tpu_torch.ops import iou_sh
 from v2x_sim_tpu_torch.ops.anchors import anchor_grid
 from v2x_sim_tpu_torch.ops.boxes import encode_boxes
 from v2x_sim_tpu_torch.ops.cuda import iou_cu
@@ -134,10 +137,9 @@ def gt_soa(gt_boxes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(fields, 2, idx[None].expand(5, b, n)).reshape(5, b * n)
 
 
-def own_cell(gt_boxes: torch.Tensor, config: Config) -> Tuple[torch.Tensor, torch.Tensor]:
+def own_cell(gt_boxes: torch.Tensor, grid: GridConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, M) row and column of the BEV cell that holds each GT centre
     (clamped into the grid)."""
-    grid = config.grid
     h, w = grid.bev_shape
     (x0, _), (y0, _) = grid.area_extents[0], grid.area_extents[1]
     gr = torch.floor((gt_boxes[..., 0] - x0) / grid.voxel_size[0]).to(torch.int64).clamp(0, h - 1)
@@ -154,6 +156,25 @@ def own_cell_pairs(
     k = anchors.shape[2]
     gt_rep = gt_boxes[:, :, None, :].expand(b, m, k, 5)
     return gt_rep.reshape(-1, 5).T.contiguous(), anchors[gr, gc].reshape(-1, 5).T.contiguous()
+
+
+def forced_anchor_plain(
+    gt_boxes: torch.Tensor, gt_mask: torch.Tensor, anchors: torch.Tensor, grid: GridConfig
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of ``iou_cu.forced_anchor``: each GT against the
+    K anchors of its own cell.
+
+    Returns own_iou (B, M, K), own_k (B, M) the first index of the largest
+    (the tie order of torch's and JAX's argmax), force (B, M) gt_mask &
+    (largest > 0), and cell (B, M) the own cell's row * W + column.
+    """
+    b, m = gt_boxes.shape[:2]
+    k = anchors.shape[2]
+    gr, gc = own_cell(gt_boxes, grid)
+    gt_op, own_op = own_cell_pairs(gt_boxes, anchors, gr, gc)
+    own_iou = iou_sh.rotated_iou(gt_op.T, own_op.T).view(b, m, k)
+    force = gt_mask & (own_iou.amax(dim=-1) > 0.0)
+    return own_iou, own_iou.argmax(dim=-1), force, gr * anchors.shape[1] + gc
 
 
 def assign_targets_batched(
@@ -203,13 +224,11 @@ def assign_targets_batched(
     grid = config.grid
     (x0, _), (y0, _) = grid.area_extents[0], grid.area_extents[1]
     vx, vy = grid.voxel_size[0], grid.voxel_size[1]
-    gr, gc = own_cell(gt_boxes, config)
-    own_iou = iou_cu.rotated_iou_pairs_soa(*own_cell_pairs(gt_boxes, anchors, gr, gc)).view(b, m, k)
-    own_k = own_iou.argmax(dim=-1)
-    force = gt_mask & (own_iou.amax(dim=-1) > 0.0)
+    _, own_k, force, cell = iou_cu.forced_anchor(gt_boxes.contiguous(), gt_mask.contiguous(),
+                                                 anchors, grid)
     # Anchor n is a sink for GT that force nothing. Where several GT force
     # one anchor, the largest GT index wins.
-    forced_anchor = torch.where(force, (gr * w + gc) * k + own_k, n)
+    forced_anchor = torch.where(force, cell * k + own_k, n)
     gt_index = torch.arange(m, device=dev).expand(b, m)
     forced_gt = torch.full((b, n + 1), -1, dtype=torch.int64, device=dev).scatter_reduce_(
         1, forced_anchor, gt_index, reduce="amax")[:, :n]
