@@ -19,8 +19,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      kernel's launch count must rise; the NMS IoU matrix must match the
      plain version on predict's own sorted candidates, where it is also
      timed; one scene must match the port run on the CPU.
-  4. Predict timing: scenes/sec in fp32 and bf16, per-stage CUDA-event
-     times, peak device memory.
+  4. Predict timing: scenes/sec in fp32 and bf16 (also over 20 calls on
+     the batch moved to the card once, phase 16's window), per-stage
+     CUDA-event times, peak device memory.
   5. Training at full width: prepare_batch (voxelize + sparse anchor
      assignment) then train_step on B=16 scenes. The periodic kernel must
      launch exactly twice per prepare_batch, the forced-anchor entry once
@@ -170,6 +171,20 @@ Phases, each reported on its own line; any failure exits non-zero:
      create_data_seg; (d) the card model saved as the reference's
      {"model_state_dict": ...} .pth and reloaded through
      train/torch_convert.py: bit-equal logits.
+ 16. The root entry points' counterparts: (a) python bench_torch.py --run
+     in a subprocess under its own time limit (the headline bench: bf16
+     disco predict at B=16, the train step alone, prepare + step, the
+     .npz pipeline, FLOP-counted MFU, the reference graph timed on this
+     card): exit code 0, every key of its last line, rates and
+     vs_baseline > 0, 0 < mfu_pct and train_mfu_pct <= 100, its K1/K2
+     launches (stderr), and its predict and step-only rates within 10% of
+     the bf16 windows of phases 4 and 6 that time the same calls (predict
+     on a batch moved to the card once, 20 calls; the step on one
+     prepared batch);
+     (b) graft_entry.entry() on the card against entry(device="cpu"),
+     the same weights and occupancy: logits and regression within 1e-4
+     (TF32 off); (c) graft_entry.dryrun_multichip(4) on 4 gloo ranks
+     sharing the card: all five variants' lines.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -184,7 +199,8 @@ training, every mode's predict, late fusion, KD training, each tool run
 of the workflow, the segmentation phase, each run of phase 12, each
 tool run of phase 13, phase 14's ranks from their start, and its --dp 0
 run, each sharded run of phase 14 (d), each call and tool run of phase
-15) and read after it. "[time]"
+15) and read after it; phase 16's bench counts its own launches in its
+process and prints them on stderr. "[time]"
 lines give each phase's seconds.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -624,9 +640,10 @@ def phase_main_path(device, cfg, spec, batch_size: int, variables, card: str = "
 
 
 def phase_timing(device, cfg, variables, batch, card: str, mode: str = "disco",
-                 tag: str = "[4]") -> dict:
+                 tag: str = "[4]", resident_steps: int = 0) -> dict:
     """Predict throughput, per-stage CUDA-event times and peak memory of
-    `mode` in fp32 and bf16."""
+    `mode` in fp32 and bf16; with `resident_steps`, also the rate of that
+    many calls on the batch moved to the card once (the bench's window)."""
     import torch
 
     from v2x_sim_tpu_torch.ops.nms import batched_nms
@@ -650,6 +667,18 @@ def phase_timing(device, cfg, variables, batch, card: str, mode: str = "disco",
         if not (bool(torch.isfinite(res.boxes).all()) and bool(torch.isfinite(res.scores).all())):
             raise AssertionError(f"non-finite {label} predict output")
         del res
+        resident = ""
+        if resident_steps:
+            dev_batch = module.to_device(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(resident_steps):
+                module.predict(dev_batch, MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
+            torch.cuda.synchronize()
+            out[label + "_resident"] = b * resident_steps / (time.perf_counter() - t0)
+            resident = (f"; {out[label + '_resident']:.2f} scenes/s over {resident_steps} calls "
+                        "on the batch moved to the card once")
+            del dev_batch
 
         # Per-stage device times of one predict, events between stages.
         names = ("upload", "voxelize", "encoder", "fusion", "decoder+heads", "decode", "nms")
@@ -679,7 +708,8 @@ def phase_timing(device, cfg, variables, batch, card: str, mode: str = "disco",
         out[label] = {"scenes_per_s": rate, "stages_ms": stages, "peak_gib": peak_gib}
         split = ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         log(f"{tag} {mode} {label}: predict {rate:.2f} scenes/s at B={b} (host clock over {steps} "
-            f"synchronized calls); stages ms: {split}; peak memory {peak_gib:.2f} GiB [{card}]")
+            f"synchronized calls{resident}); stages ms: {split}; peak memory {peak_gib:.2f} GiB "
+            f"[{card}]")
         del module
         torch.cuda.empty_cache()
     return out
@@ -3536,6 +3566,118 @@ def phase_bf16_host(device, cfg, variables, batch, card: str, train_rates: dict)
     return {"launches": launches}
 
 
+#: Phase 16: the keys of the bench's JSON line (the JAX bench's, plus the
+#: reference graph's own rate on the card), the largest gap allowed between
+#: its rates and the windows of phases 4 and 6 that time the same calls on
+#: the same card (predict on a batch moved to the card once; the train step
+#: on one prepared batch; on an H100 at 700 W four pairings of each stayed
+#: within 2.1%, PERF.md section 6), and the bench subprocess's time limit.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "tflops", "mfu_pct",
+              "train_scenes_per_sec", "train_tflops", "train_mfu_pct",
+              "train_e2e_scenes_per_sec", "train_cached_scenes_per_sec",
+              "baseline_scenes_per_sec")
+BENCH_RATE_GAP = 0.10
+BENCH_TIMEOUT_S = 600
+ENTRY_TOL = 1e-4  # entry()'s logits and regression, card vs CPU (fp32, TF32 off)
+DRYRUN_RANKS = 4
+DRYRUN_LINES = ("dryrun disco+kd ok:", "dryrun mgda ok:", "dryrun gspmd dp x spatial ok:",
+                "dryrun seg dp ok:", "dryrun gspmd seg dp x spatial ok:")
+
+
+def _bench(card: str, predict_bf16: float, train_bf16: float) -> None:
+    """Phase 16 (a): ``python bench_torch.py --run`` in a subprocess bounded
+    by BENCH_TIMEOUT_S (the measurement without main()'s preflight and
+    wrapping subprocess); its line's keys and ranges, its launches, and its
+    rates beside phase 4's resident-batch window and phase 6's step only."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py"), "--run"],
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, cwd=ROOT)
+    for line in proc.stderr.strip().splitlines():
+        log(f"[16]   | {line}")
+    lines = proc.stdout.strip().splitlines()
+    log(f"[16]   | {lines[-1] if lines else '(no stdout)'}")
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}")
+    rec = json.loads(lines[-1])
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    if missing or "error" in rec:
+        raise AssertionError(f"the bench's line lacks {missing} or has an error: {rec}")
+    rates = ("value", "train_scenes_per_sec", "train_e2e_scenes_per_sec",
+             "train_cached_scenes_per_sec", "baseline_scenes_per_sec", "vs_baseline")
+    if not all(rec[k] > 0 for k in rates):
+        raise AssertionError(f"a rate of the bench is not positive: {rec}")
+    if not all(0 < rec[k] <= 100 for k in ("mfu_pct", "train_mfu_pct")):
+        raise AssertionError(f"an MFU share of the bench lies outside (0, 100]: {rec}")
+    launch_line = [ln for ln in proc.stderr.splitlines() if "kernel launches" in ln]
+    launches = json.loads(launch_line[-1].split("kernel launches ")[1].split(";")[0])
+    if not (launches["matrix"] >= 1 and launches["forced"] >= 1 and launches["periodic"] >= 2
+            and launches["pairs"] == 0):
+        raise AssertionError(f"the bench's path did not go through the kernels: {launches}")
+    for name, got, window, want in (
+            ("predict (value)", rec["value"], "phase 4's resident-batch", predict_bf16),
+            ("train step only", rec["train_scenes_per_sec"], "phase 6's step-only", train_bf16)):
+        ratio = got / want
+        log(f"[16] (a) bench {name} {got:.2f} scenes/s vs {window} bf16 {want:.2f}: "
+            f"ratio {ratio:.4f} (allowed 1 +- {BENCH_RATE_GAP}) [{card}]")
+        if abs(ratio - 1.0) > BENCH_RATE_GAP:
+            raise AssertionError(f"the bench's {name} rate is {ratio:.4f} of the phase's")
+    log(f"[16] (a) bench_torch.py --run: {time.perf_counter() - t0:.1f} s, rc 0, all "
+        f"{len(BENCH_KEYS)} keys; vs_baseline {rec['vs_baseline']:.4f} over the reference graph's "
+        f"{rec['baseline_scenes_per_sec']:.2f} scenes/s; mfu_pct {rec['mfu_pct']:.4f}, "
+        f"train_mfu_pct {rec['train_mfu_pct']:.4f}; launches {launches} [{card}]")
+
+
+def _entry_vs_cpu(card: str) -> None:
+    """Phase 16 (b): ``graft_entry.entry()`` on the card against the CPU."""
+    import torch
+
+    from v2x_sim_tpu_torch.graft_entry import entry
+
+    fn, args = entry()
+    cfn, cargs = entry(device="cpu")
+    if not torch.equal(args[1].cpu(), cargs[1]):
+        raise AssertionError("entry()'s occupancy differs between the card and the CPU")
+    got, want = fn(*args), cfn(*cargs)
+    errs = [float((g.float().cpu() - w).abs().max()) for g, w in zip(got, want)]
+    log(f"[16] (b) entry(): cls_logits {tuple(got[0].shape)} and reg {tuple(got[1].shape)}, "
+        f"card vs CPU max |d| {errs[0]:.3e} and {errs[1]:.3e} (bound {ENTRY_TOL}) [{card}]")
+    if not all(bool(torch.isfinite(g).all()) for g in got) or max(errs) > ENTRY_TOL:
+        raise AssertionError(f"entry() on the card is {errs} from the CPU")
+
+
+def _dryrun(card: str) -> None:
+    """Phase 16 (c): ``graft_entry.dryrun_multichip`` on DRYRUN_RANKS gloo
+    ranks sharing the card; all five variants' lines."""
+    import contextlib
+    import io
+
+    from v2x_sim_tpu_torch.graft_entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dryrun_multichip(DRYRUN_RANKS)
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[16]   | {line}")
+    missing = [want for want in DRYRUN_LINES if not any(ln.startswith(want) for ln in lines)]
+    if missing:
+        raise AssertionError(f"dryrun_multichip({DRYRUN_RANKS}) printed no {missing}")
+    log(f"[16] (c) dryrun_multichip({DRYRUN_RANKS}): all {len(DRYRUN_LINES)} variants stepped, "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def phase_bench_entry(card: str, predict_rates: dict, train_rates: dict) -> None:
+    """Phase 16: the root entry points' counterparts: the bench, the
+    flagship forward and the multi-device dry run."""
+    _bench(card, predict_rates["bf16_resident"], train_rates["bf16"]["step_scenes_per_s"])
+    _entry_vs_cpu(card)
+    _dryrun(card)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -3548,6 +3690,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
+        from v2x_sim_tpu_torch.bench import STEPS as BENCH_STEPS
         from v2x_sim_tpu_torch.bridge import random_flax_variables
         from v2x_sim_tpu_torch.configs.config import Config
         from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec
@@ -3587,7 +3730,8 @@ def main() -> int:
 
     variables = random_flax_variables(DetModel(cfg, "disco"), seed=0)
     main_path = timed("predict", phase_main_path, device, cfg, spec, BATCH, variables, card, base)
-    timed("predict timing", phase_timing, device, cfg, variables, main_path["batches"][0], card)
+    predict_rates = timed("predict timing", phase_timing, device, cfg, variables,
+                          main_path["batches"][0], card, "disco", "[4]", BENCH_STEPS)
     predict_launches, nms = main_path["launches"], main_path["nms_matrix"]
     predict_batch = main_path["batches"][0]
     del main_path
@@ -3608,6 +3752,7 @@ def main() -> int:
     dp = timed("dp", phase_dp, device, cfg, spec, card)["launches"]
     p15 = timed("bf16, layouts, nuScenes, pth", phase_bf16_host, device, cfg, variables,
                 train["batch"], card, train_rates)["launches"]
+    timed("bench, entry, dry run", phase_bench_entry, card, predict_rates, train_rates)
     log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"

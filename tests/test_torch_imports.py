@@ -1,6 +1,6 @@
-"""The port stands alone: nothing under v2x_sim_tpu_torch/ nor
-chip_smoke.py imports JAX, flax or the JAX package, and its entry points
-refuse to run without a card unless asked for the CPU."""
+"""The port stands alone: nothing under v2x_sim_tpu_torch/, chip_smoke.py
+nor bench_torch.py imports JAX, flax or the JAX package, and its entry
+points refuse to run without a card unless asked for the CPU."""
 
 import ast
 import pathlib
@@ -13,7 +13,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "v2x_sim_tpu"}
 
 
 def _port_files():
-    return sorted((ROOT / "v2x_sim_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "v2x_sim_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                  ROOT / "bench_torch.py"]
 
 
 def _imported_roots(path):
@@ -41,7 +42,7 @@ def test_port_imports_nothing_of_jax():
     # Every subpackage is scanned: the tools, the native reader's bindings,
     # the data readers and the evaluation utilities among them.
     for sub in ("tools", "native", "datasets", "utils", "train", "models", "ops", "tracking",
-                "parallel"):
+                "parallel", "baselines"):
         assert any(n.startswith(f"v2x_sim_tpu_torch/{sub}/") for n in names), sub
     assert {"v2x_sim_tpu_torch/tools/train_det.py", "v2x_sim_tpu_torch/tools/test_det.py",
             "v2x_sim_tpu_torch/tools/create_data_det.py", "v2x_sim_tpu_torch/tools/common.py",
@@ -63,7 +64,9 @@ def test_port_imports_nothing_of_jax():
             "v2x_sim_tpu_torch/tools/xprof_det.py", "v2x_sim_tpu_torch/tools/bench_loader.py",
             "v2x_sim_tpu_torch/parallel/mesh.py", "v2x_sim_tpu_torch/parallel/spatial.py",
             "v2x_sim_tpu_torch/datasets/nuscenes_writer.py",
-            "v2x_sim_tpu_torch/train/torch_convert.py"} <= names
+            "v2x_sim_tpu_torch/train/torch_convert.py", "v2x_sim_tpu_torch/bench.py",
+            "v2x_sim_tpu_torch/graft_entry.py", "v2x_sim_tpu_torch/baselines/torch_ref.py",
+            "bench_torch.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert {k: v for k, v in bad.items() if v} == {}
 
@@ -78,7 +81,8 @@ def test_import_scan_catches_forbidden_imports(tmp_path):
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
-    from v2x_sim_tpu_torch import resolve_device
+    from v2x_sim_tpu_torch import bench, graft_entry, resolve_device
+    from v2x_sim_tpu_torch.baselines import torch_ref
     from v2x_sim_tpu_torch.configs.config import Config
     from v2x_sim_tpu_torch.train.det_module import DetModule
     from v2x_sim_tpu_torch.train.seg_module import SegModule
@@ -92,7 +96,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         DetModule(Config(), "disco", use_vis=True, mgda=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+    occ, trans = torch.zeros(1, 1, 4, 4, 2), torch.eye(4).expand(1, 1, 1, 4, 4)
+    mask = torch.ones(1, 1)
+    for entry_point in (bench.run, graft_entry.entry, lambda: graft_entry.dryrun_multichip(2),
+                        lambda: torch_ref.measure(occ, trans, mask)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry_point()
     assert resolve_device("cpu") == torch.device("cpu")
+    fn, (model, occ, _, _) = graft_entry.entry(device="cpu")
+    assert occ.device.type == "cpu" and next(model.parameters()).device.type == "cpu"
 
 
 @pytest.mark.parametrize("mode", ["upperbound", "v2v", "when2com"])
