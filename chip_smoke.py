@@ -122,10 +122,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      diag_v2v (2 steps at B=2: 3 probes of 3 rounds of finite gate
      stats); diag_upperbound (2 steps, probes at 0 and 2), and its probe
      on the card after a training step leaves every parameter, buffer and
-     Adam state bit-identical; profile_det's stage budget at B=16 in bf16
-     with prepare and train; xprof_det's kernel profile and device busy
-     and idle shares of train, prepare (the assignment's kernels by name)
-     and predict at B=16.
+     Adam state bit-identical; xprof_det's kernel profile, device busy
+     and idle shares and by-span table of train, prepare (the
+     assignment's kernels by name, under det.assign) and predict at B=16.
  14. Data parallelism and row sharding at Config(), through
      v2x_sim_tpu_torch/parallel/: (a) two gloo ranks sharing the card
      (spawned; the kernels built before), each on 8 of 16 scenes: one
@@ -2431,8 +2430,8 @@ def _probe_keeps_state(device) -> str:
 def phase_tools(device, card: str) -> dict:
     """Phase 13: the benchmark-table, diagnostic and profiling tools through
     their main(argv) at full width (Config(): 256x256x13, 6 agents), in a
-    temporary directory. Returns the summed kernel launches, the profile
-    rows and the xprof reports."""
+    temporary directory. Returns the summed kernel launches and the xprof
+    reports."""
     import tempfile
 
     import torch
@@ -2445,7 +2444,6 @@ def phase_tools(device, card: str) -> dict:
         bench_table_track,
         diag_upperbound,
         diag_v2v,
-        profile_det,
         xprof_det,
     )
 
@@ -2567,12 +2565,8 @@ def phase_tools(device, card: str) -> dict:
         log(f"[13] diag_upperbound 2 steps at B=2: {secs:.1f} s, launches {counts}; "
             f"{_probe_keeps_state(device)}")
         out["diag_upperbound"] = diag[-1]
-        # (g) The profilers at B=16, bf16.
+        # (g) The profiler at B=16, bf16.
         prof = ["--grid", PROFILE_GRID, "--batch", str(BATCH)] + cpu
-        rows_ms, secs, counts = run(profile_det, prof + ["--train", "1"])
-        if not all(np.isfinite(v) and v > 0 for v in rows_ms.values()) or len(rows_ms) != 9:
-            raise AssertionError(f"profile_det rows {rows_ms}")
-        out["profile_det"] = rows_ms
         out["xprof"] = {}
         for what in ("train", "prepare", "predict"):
             rep, secs, counts = run(xprof_det, prof + ["--what", what, "--top", "15",
@@ -2582,11 +2576,26 @@ def phase_tools(device, card: str) -> dict:
                     raise AssertionError(f"xprof_det {what}: busy share {rep['busy']}")
                 if what == "prepare" and rep["categories_ms"]["rotated_iou (K1, K2)"] <= 0.0:
                     raise AssertionError("xprof_det prepare: no rotated_iou kernel in the trace")
+                # The entry's device time is its child spans' (each launch
+                # credited to the span open when it began), and K2's two
+                # launches land in the assignment's IoU span.
+                spans = rep["spans"]
+                entry = next(iter(spans))
+                kids = sum(r["device_ms"] for p, r in spans.items() if p.count("/") == 1)
+                if abs(kids - spans[entry]["device_ms"]) > 0.05 * spans[entry]["device_ms"]:
+                    raise AssertionError(f"xprof_det {what}: child spans {kids} ms of {entry}'s "
+                                         f"{spans[entry]['device_ms']} ms")
+                iou = spans.get("det.prepare_batch/det.assign/det.assign.iou", {})
+                if what == "prepare" and iou.get("launches", 0) < 2:
+                    raise AssertionError(f"xprof_det prepare: the IoU span launched {iou}")
             out["xprof"][what] = rep
         log(f"[13] xprof_det busy / idle share at B={BATCH}: "
             + "; ".join(f"{w} {r.get('busy', float('nan')):.4f} / {r.get('idle', float('nan')):.4f} "
                         f"of {r.get('window_ms', float('nan')):.3f} ms"
                         for w, r in out["xprof"].items()) + f" [{card}]")
+        log(f"[13] xprof_det device ms a call by span at B={BATCH}: "
+            + "; ".join(f"{p} {r['device_ms']}" for rep in out["xprof"].values()
+                        for p, r in rep["spans"].items() if p.count("/") <= 1) + f" [{card}]")
     out["launches"] = total
     log(f"[13] kernel launches over the phase: {total}")
     return out

@@ -60,8 +60,8 @@ def test_port_imports_nothing_of_jax():
             "v2x_sim_tpu_torch/tools/bench_table_assemble.py",
             "v2x_sim_tpu_torch/tools/bench_table_merge.py",
             "v2x_sim_tpu_torch/tools/bench_table_track.py", "v2x_sim_tpu_torch/tools/diag_v2v.py",
-            "v2x_sim_tpu_torch/tools/diag_upperbound.py", "v2x_sim_tpu_torch/tools/profile_det.py",
-            "v2x_sim_tpu_torch/tools/xprof_det.py", "v2x_sim_tpu_torch/tools/bench_loader.py",
+            "v2x_sim_tpu_torch/tools/diag_upperbound.py", "v2x_sim_tpu_torch/tools/xprof_det.py",
+            "v2x_sim_tpu_torch/tools/bench_loader.py", "v2x_sim_tpu_torch/utils/spans.py",
             "v2x_sim_tpu_torch/parallel/mesh.py", "v2x_sim_tpu_torch/parallel/spatial.py",
             "v2x_sim_tpu_torch/datasets/nuscenes_writer.py",
             "v2x_sim_tpu_torch/train/torch_convert.py", "v2x_sim_tpu_torch/bench.py",

@@ -1,13 +1,18 @@
 """The port's profiling and loader-benchmark tools, on the CPU.
 
-  * ``profile_det --cpu --grid small --train 1`` prints its device line
-    (CPU) and every row of the cumulative stage budget, with the deltas.
   * ``xprof_det --cpu --grid small`` traces train, prepare and predict,
-    labels its self times CPU, prints every category and reports no busy
-    share; ``--report_only`` on that trace (which holds no device event)
-    exits non-zero and says so. The trace report's busy share is the
-    union of the device intervals over the window from the first launch
-    to the end of the final synchronize (a hand-made trace).
+    labels its self times CPU, prints every category, reports no busy
+    share, and prints its by-span table: each entry's span tree once a
+    call, with host ms and no device column; ``--report_only`` on that
+    trace (which holds no device event) exits non-zero and says so. The
+    trace report's busy share is the union of the device intervals over
+    the window from the first launch to the end of the final synchronize
+    (a hand-made trace).
+  * The by-span table of a hand-made device trace: kernels credited
+    through ``args.correlation`` to the innermost ``det.`` span open on
+    the entry's thread when their launch began, a launch from another
+    thread inside ``det.backward`` among them; syncs counted by span, the
+    harness-style synchronize outside every span left out.
   * ``bench_loader`` prints the JAX tool's JSON keys, for the reader and
     for ``--cache``.
   * Without ``--cpu`` and without a card, every new tool raises.
@@ -26,7 +31,6 @@ from v2x_sim_tpu_torch.tools import (
     bench_table_track,
     diag_upperbound,
     diag_v2v,
-    profile_det,
     xprof_det,
 )
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401
@@ -41,17 +45,21 @@ def _run(tool, argv):
     return result, out.getvalue()
 
 
-def test_profile_det_prints_every_row_on_cpu():
-    rows, text = _run(profile_det, SMALL + ["--steps", "1", "--train", "1"])
-    labels = ["vox", "+enc", "+fuse", "+dec", "+heads", "+decode", "+nms", "prepare", "train"]
-    assert list(rows) == labels
-    lines = text.splitlines()
-    assert lines[0] == "device: CPU"
-    assert "cumulative stage budget (bf16)" in lines[1]
-    for label in labels:
-        assert any(line.startswith(f"{label} ") and "ms/batch" in line for line in lines), label
-    assert sum("delta" in line for line in lines) == 6
-    assert all(ms > 0 for ms in rows.values())
+#: Each traced entry's span paths (DiscoNet, no KD, one process).
+SPAN_TREES = {
+    "train": ["det.train_step", "det.train_step/det.model", "det.train_step/det.model/det.encode",
+              "det.train_step/det.model/det.fuse", "det.train_step/det.model/det.heads",
+              "det.train_step/det.loss", "det.train_step/det.backward",
+              "det.train_step/det.optimizer"],
+    "prepare": ["det.prepare_batch", "det.prepare_batch/det.voxelize",
+                "det.prepare_batch/det.assign", "det.prepare_batch/det.assign/det.assign.nearest",
+                "det.prepare_batch/det.assign/det.assign.iou",
+                "det.prepare_batch/det.assign/det.assign.forced"],
+    "predict": ["det.predict", "det.predict/det.voxelize", "det.predict/det.model",
+                "det.predict/det.model/det.encode", "det.predict/det.model/det.fuse",
+                "det.predict/det.model/det.heads", "det.predict/det.decode", "det.predict/det.nms",
+                "det.predict/det.nms/det.nms.iou", "det.predict/det.nms/det.nms.greedy"],
+}
 
 
 @pytest.mark.parametrize("what", ["train", "prepare", "predict"])
@@ -65,6 +73,17 @@ def test_xprof_det_reports_cpu_self_time(what, tmp_path):
         assert any(line.strip().startswith(cat) for line in lines), cat
     assert "device busy share: not measured (CPU run)" in lines
     assert len(rep["top_ms"]) == 5 and rep["total_ms"] > 0 and "busy" not in rep
+    # The by-span table: the entry's tree once a call, in order, with host
+    # times that nest and no device column on the CPU.
+    spans = rep["spans"]
+    assert list(spans) == SPAN_TREES[what]
+    assert all(r["calls"] == 1.0 and r["host_ms"] > 0 for r in spans.values())
+    assert all(r["device_ms"] is r["launches"] is r["syncs"] is None for r in spans.values())
+    entry = SPAN_TREES[what][0]
+    assert sum(spans[p]["host_ms"] for p in spans if p.count("/") == 1) <= spans[entry]["host_ms"]
+    table = lines[lines.index(next(x for x in lines if x.startswith("by span"))) + 2:]
+    assert [row.split()[0] for row in table] == SPAN_TREES[what]
+    assert all(row.split()[3:] == ["-", "-", "-"] for row in table)
     with pytest.raises(SystemExit, match="holds no device events"):
         _run(xprof_det, ["--report_only", "--what", what, "--trace_dir", trace_dir])
 
@@ -94,8 +113,78 @@ def test_trace_report_busy_share(tmp_path):
     assert [n for n, _ in rep["top_ms"]] == ["void rotated_iou_pairs_periodic_kernel(...)",
                                              "sm90_xmma_fprop_implicit_gemm_bf16"]
     assert xprof_det.device_report(str(path), 2) is not None
+    assert rep["spans"] == {}  # no program span in this trace
     path.write_text(json.dumps({"traceEvents": events[-1:]}))
     assert xprof_det.device_report(str(path), 2) is None
+
+
+def _ev(name, cat, ts, dur, tid=1, corr=None):
+    e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur, "pid": 1, "tid": tid}
+    if corr is not None:
+        e["args"] = {"correlation": corr}
+    return e
+
+
+#: Two steps on the entry's thread 1; the backward's launches come from
+#: thread 2 (the autograd engine's) while thread 1 waits in det.backward.
+SPAN_EVENTS = [
+    _ev("bench.window", "user_annotation", 0, 1000),
+    _ev("aten::add", "cpu_op", 0, 5),
+    # Step 1.
+    _ev("det.train_step", "user_annotation", 10, 400),
+    _ev("det.model", "user_annotation", 20, 100),
+    _ev("det.encode", "user_annotation", 25, 50),
+    _ev("cudaLaunchKernel", "cuda_runtime", 30, 4, corr=1),
+    _ev("conv_kernel", "kernel", 40, 60, tid=7, corr=1),
+    _ev("cuLaunchKernel", "cuda_driver", 90, 4, corr=2),  # det.model's own
+    _ev("gemm_kernel", "kernel", 100, 30, tid=7, corr=2),
+    _ev("det.backward", "user_annotation", 150, 200),
+    _ev("cudaLaunchKernel", "cuda_runtime", 160, 4, tid=2, corr=3),
+    _ev("wgrad_kernel", "kernel", 170, 100, tid=7, corr=3),
+    _ev("cudaMemsetAsync", "cuda_runtime", 200, 2, tid=2, corr=4),
+    _ev("Memset (Device)", "gpu_memset", 280, 10, tid=7, corr=4),
+    _ev("det.optimizer", "user_annotation", 360, 40),
+    _ev("cudaMemcpyAsync", "cuda_runtime", 362, 3, corr=5),
+    _ev("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 365, 1, tid=7, corr=5),
+    _ev("cudaStreamSynchronize", "cuda_runtime", 366, 20, corr=6),
+    _ev("cudaLaunchKernel", "cuda_runtime", 390, 4, corr=7),
+    _ev("adam_kernel", "kernel", 395, 20, tid=7, corr=7),
+    # Step 2: the model alone, then the harness's synchronize outside it.
+    _ev("det.train_step", "user_annotation", 500, 100),
+    _ev("det.model", "user_annotation", 510, 50),
+    _ev("cudaLaunchKernel", "cuda_runtime", 520, 4, corr=8),
+    _ev("gemm_kernel", "kernel", 530, 30, tid=7, corr=8),
+    _ev("bench.sync", "user_annotation", 600, 100),
+    _ev("cudaDeviceSynchronize", "cuda_runtime", 601, 90),
+    _ev("cudaLaunchKernel", "cuda_runtime", 700, 4, corr=9),  # in no det. span
+    _ev("other_kernel", "kernel", 710, 5, tid=7, corr=9),
+]
+
+
+def test_trace_report_credits_spans(tmp_path):
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": SPAN_EVENTS}))
+    spans = xprof_det.device_report(str(path), top=3)["spans"]
+    assert list(spans) == ["det.train_step", "det.train_step/det.model",
+                           "det.train_step/det.model/det.encode", "det.train_step/det.backward",
+                           "det.train_step/det.optimizer"]
+    row = lambda p: [spans[p][k] for k in ("calls", "launches", "syncs")]
+    # A call of the entry: two steps.
+    assert row("det.train_step") == [1.0, 2.5, 0.5]
+    assert row("det.train_step/det.model") == [1.0, 1.5, 0.0]
+    assert row("det.train_step/det.model/det.encode") == [0.5, 0.5, 0.0]
+    assert row("det.train_step/det.backward") == [0.5, 0.5, 0.0]
+    assert row("det.train_step/det.optimizer") == [0.5, 0.5, 0.5]
+    ms = lambda p: spans[p]["device_ms"]
+    assert ms("det.train_step/det.model/det.encode") == pytest.approx(0.060 / 2)
+    assert ms("det.train_step/det.model") == pytest.approx((0.060 + 0.030 + 0.030) / 2)
+    assert ms("det.train_step/det.backward") == pytest.approx((0.100 + 0.010) / 2)
+    assert ms("det.train_step/det.optimizer") == pytest.approx((0.001 + 0.020) / 2)
+    assert ms("det.train_step") == pytest.approx((0.120 + 0.110 + 0.021) / 2)
+    assert spans["det.train_step"]["host_ms"] == pytest.approx((0.400 + 0.100) / 2)
+    totals = xprof_det.span_totals(SPAN_EVENTS)
+    assert totals["det.train_step"]["calls"] == 2
+    assert sum(t["syncs"] for p, t in totals.items() if "/" not in p) == 1  # bench.sync's left out
 
 
 def test_bench_loader_prints_the_jax_keys():
@@ -119,7 +208,6 @@ def test_bench_loader_cache_reads_baked_frames():
     (bench_table_track, ["--states", "."]),
     (diag_v2v, ["--steps", "1"]),
     (diag_upperbound, ["--steps", "1"]),
-    (profile_det, []),
     (xprof_det, []),
     (bench_loader, ["--cache"]),
 ])

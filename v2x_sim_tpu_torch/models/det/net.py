@@ -45,6 +45,7 @@ from v2x_sim_tpu_torch.models.det import fusion as F
 from v2x_sim_tpu_torch.models.det.v2vnet import V2VNetFusion
 from v2x_sim_tpu_torch.models.det.when2com import When2comFusion
 from v2x_sim_tpu_torch.parallel.spatial import gather_rows, take_rows
+from v2x_sim_tpu_torch.utils.spans import span, spanned
 
 #: The collaboration modes, as the JAX package's.
 MODES = (
@@ -151,11 +152,13 @@ class DetModel(BatchNormGroup, nn.Module):
         self.spatial_group = spatial_group
         self.set_process_group(None)
 
-    # The forward pass in stages, so a profiler can time each one.
+    # The forward pass in stages, so a profiler can time each one: each
+    # opens its span (utils/spans.py) while a profiler records.
 
     # ``train`` selects BatchNorm's training semantics (models/backbone.py)
     # and When2com's training attention.
 
+    @spanned("det.encode")
     def encode(self, occupancy: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
         """(B, A, H, W, D) -> pyramid of (B*A, C, h, w) maps (channels-last memory)."""
         return self.encoder(fold_agents(occupancy).permute(0, 3, 1, 2), train)
@@ -166,16 +169,19 @@ class DetModel(BatchNormGroup, nn.Module):
         the spatial group, keeping this rank's rows of the result."""
         if self.mode in NO_FUSION:
             return feats
-        k, g = self.layer, self.spatial_group
-        a = agent_mask.shape[1]
-        f = feats[k] if g is None else gather_rows(feats[k], g)
-        f = unfold_agents(f.permute(0, 2, 3, 1), a)  # (B, A, h, w, C)
-        fused = fuse_agents(self.mode, self.fusion, f, trans, agent_mask, self.config.grid, train)
-        fused = fold_agents(fused).permute(0, 3, 1, 2)
-        feats = list(feats)
-        feats[k] = fused if g is None else take_rows(fused, g)
-        return feats
+        with span("det.fuse"):
+            k, g = self.layer, self.spatial_group
+            a = agent_mask.shape[1]
+            f = feats[k] if g is None else gather_rows(feats[k], g)
+            f = unfold_agents(f.permute(0, 2, 3, 1), a)  # (B, A, h, w, C)
+            fused = fuse_agents(self.mode, self.fusion, f, trans, agent_mask, self.config.grid,
+                                train)
+            fused = fold_agents(fused).permute(0, 3, 1, 2)
+            feats = list(feats)
+            feats[k] = fused if g is None else take_rows(fused, g)
+            return feats
 
+    @spanned("det.heads")
     def decode_heads(self, feats: List[torch.Tensor], num_agents: int, train: bool = False) -> DetOutput:
         decoded = self.decoder(feats, train)
         cls = unfold_agents(self.cls_head(decoded), num_agents)
@@ -183,6 +189,7 @@ class DetModel(BatchNormGroup, nn.Module):
         fused = unfold_agents(feats[self.layer].permute(0, 2, 3, 1), num_agents) if self.kd else None
         return DetOutput(cls, reg, fused)
 
+    @spanned("det.model")
     def forward(self, occupancy, trans, agent_mask, train: bool = False) -> DetOutput:
         feats = self.fuse(self.encode(occupancy, train), trans, agent_mask, train)
         return self.decode_heads(feats, occupancy.shape[1], train)

@@ -27,6 +27,7 @@ from v2x_sim_tpu_torch.configs.config import GridConfig
 from v2x_sim_tpu_torch.models.backbone import fold_agents, unfold_agents
 from v2x_sim_tpu_torch.models.convrnn import ConvGRUCell
 from v2x_sim_tpu_torch.models.det.fusion import warp_neighbors
+from v2x_sim_tpu_torch.utils.spans import span
 
 GN_EPS = 1e-6
 
@@ -75,13 +76,15 @@ class V2VNetFusion(nn.Module):
 
         state = feats
         for _ in range(self.rounds):
-            warped = warp_neighbors(state, trans, mask, self.grid)  # (B, Ai, Aj, h, w, C)
-            m_nbr = conv(warped.reshape(b * a * a, h, w, c), w_nbr).reshape(b, a, a, h, w, c)
-            m_ego = conv(fold_agents(state), w_ego, b1).reshape(b, a, 1, h, w, c)
-            msg = torch.relu(m_nbr + m_ego)
-            msg = torch.relu(conv(msg.reshape(b * a * a, h, w, c), w2, b2)).reshape(b, a, a, h, w, c)
-            agg = (msg * pair_w).sum(dim=2) / n_nbr[..., None, None, None]
-            if self.msg_norm is not None:
-                agg = unfold_agents(group_norm(fold_agents(agg), self.msg_norm), a)
-            state = self.conv_gru(state, agg)
+            with span("det.fuse.round"):
+                warped = warp_neighbors(state, trans, mask, self.grid)  # (B, Ai, Aj, h, w, C)
+                m_nbr = conv(warped.reshape(b * a * a, h, w, c), w_nbr).reshape(b, a, a, h, w, c)
+                m_ego = conv(fold_agents(state), w_ego, b1).reshape(b, a, 1, h, w, c)
+                msg = torch.relu(m_nbr + m_ego)
+                msg = torch.relu(conv(msg.reshape(b * a * a, h, w, c), w2, b2)).reshape(
+                    b, a, a, h, w, c)
+                agg = (msg * pair_w).sum(dim=2) / n_nbr[..., None, None, None]
+                if self.msg_norm is not None:
+                    agg = unfold_agents(group_norm(fold_agents(agg), self.msg_norm), a)
+                state = self.conv_gru(state, agg)
         return state

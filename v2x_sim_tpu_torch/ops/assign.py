@@ -37,6 +37,7 @@ from v2x_sim_tpu_torch.ops import iou_sh
 from v2x_sim_tpu_torch.ops.anchors import anchor_grid
 from v2x_sim_tpu_torch.ops.boxes import encode_boxes
 from v2x_sim_tpu_torch.ops.cuda import iou_cu
+from v2x_sim_tpu_torch.utils.spans import span, spanned
 
 #: Positive-cell capacity at coarse grids (>= 1 m voxels), where a vehicle
 #: covers a handful of cells.
@@ -112,6 +113,7 @@ class AnchorTargets(NamedTuple):
     best_iou: torch.Tensor
 
 
+@spanned("det.assign.nearest")
 def nearest_gt(
     gt_boxes: torch.Tensor, gt_mask: torch.Tensor, anchors: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -210,28 +212,30 @@ def assign_targets_batched(
     # 1-2. Two candidates per cell, exact IoU of every anchor against each.
     c1, c2, v1, v2 = nearest_gt(gt_boxes, gt_mask, anchors)
     per_anchor = lambda t: t[..., None].expand(b, h, w, k).reshape(b, n)
-    c1f, c2f = per_anchor(c1), per_anchor(c2)
-    anchors_soa = anchors.reshape(n, 5).T.contiguous()
-    iou1 = iou_cu.rotated_iou_pairs_soa_periodic(anchors_soa, gt_soa(gt_boxes, c1f)).view(b, n)
-    iou2 = iou_cu.rotated_iou_pairs_soa_periodic(anchors_soa, gt_soa(gt_boxes, c2f)).view(b, n)
-    iou1 = iou1 * per_anchor(v1).to(dtype)
-    iou2 = iou2 * per_anchor(v2).to(dtype)
-    take2 = iou2 > iou1
-    iou = torch.where(take2, iou2, iou1)
-    best_gt = torch.where(take2, c2f, c1f)
+    with span("det.assign.iou"):
+        c1f, c2f = per_anchor(c1), per_anchor(c2)
+        anchors_soa = anchors.reshape(n, 5).T.contiguous()
+        iou1 = iou_cu.rotated_iou_pairs_soa_periodic(anchors_soa, gt_soa(gt_boxes, c1f)).view(b, n)
+        iou2 = iou_cu.rotated_iou_pairs_soa_periodic(anchors_soa, gt_soa(gt_boxes, c2f)).view(b, n)
+        iou1 = iou1 * per_anchor(v1).to(dtype)
+        iou2 = iou2 * per_anchor(v2).to(dtype)
+        take2 = iou2 > iou1
+        iou = torch.where(take2, iou2, iou1)
+        best_gt = torch.where(take2, c2f, c1f)
 
     # 3. Force each GT's best anchor at its own cell.
     grid = config.grid
     (x0, _), (y0, _) = grid.area_extents[0], grid.area_extents[1]
     vx, vy = grid.voxel_size[0], grid.voxel_size[1]
-    _, own_k, force, cell = iou_cu.forced_anchor(gt_boxes.contiguous(), gt_mask.contiguous(),
-                                                 anchors, grid)
-    # Anchor n is a sink for GT that force nothing. Where several GT force
-    # one anchor, the largest GT index wins.
-    forced_anchor = torch.where(force, cell * k + own_k, n)
-    gt_index = torch.arange(m, device=dev).expand(b, m)
-    forced_gt = torch.full((b, n + 1), -1, dtype=torch.int64, device=dev).scatter_reduce_(
-        1, forced_anchor, gt_index, reduce="amax")[:, :n]
+    with span("det.assign.forced"):
+        _, own_k, force, cell = iou_cu.forced_anchor(gt_boxes.contiguous(),
+                                                     gt_mask.contiguous(), anchors, grid)
+        # Anchor n is a sink for GT that force nothing. Where several GT
+        # force one anchor, the largest GT index wins.
+        forced_anchor = torch.where(force, cell * k + own_k, n)
+        gt_index = torch.arange(m, device=dev).expand(b, m)
+        forced_gt = torch.full((b, n + 1), -1, dtype=torch.int64, device=dev).scatter_reduce_(
+            1, forced_anchor, gt_index, reduce="amax")[:, :n]
     # Only anchors not already positive for some GT are upgraded, exactly
     # to the positive threshold.
     take_forced = (forced_gt >= 0) & (iou < pos_thr)

@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from v2x_sim_tpu_torch.ops.cuda import iou_cu
+from v2x_sim_tpu_torch.utils.spans import span, spanned
 
 NEG_INF = -1e9
 
@@ -38,6 +39,7 @@ def sort_candidates(
     return boxes, torch.gather(scores, -1, order), torch.gather(valid, -1, order)
 
 
+@spanned("det.nms.greedy")
 def greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Greedy suppression of score-sorted candidates.
 
@@ -53,6 +55,7 @@ def greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_threshold: float) ->
     return keep
 
 
+@spanned("det.nms")
 def batched_nms(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -62,11 +65,12 @@ def batched_nms(
     """Greedy rotated NMS over leading batch dims: (..., K, 5) / (..., K)."""
     batch_shape = boxes.shape[:-2]
     k = boxes.shape[-2]
-    boxes, scores, valid = sort_candidates(
-        boxes.reshape(-1, k, 5), scores.reshape(-1, k), valid.reshape(-1, k)
-    )
-    boxes = boxes.to(torch.float32).contiguous()
-    iou = iou_cu.rotated_iou_matrix(boxes, boxes)
+    with span("det.nms.iou"):
+        boxes, scores, valid = sort_candidates(
+            boxes.reshape(-1, k, 5), scores.reshape(-1, k), valid.reshape(-1, k)
+        )
+        boxes = boxes.to(torch.float32).contiguous()
+        iou = iou_cu.rotated_iou_matrix(boxes, boxes)
     keep = greedy_keep(iou, valid, iou_threshold)
     scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
     return NMSResult(

@@ -16,12 +16,17 @@ to ``--trace_dir/<what>.json``. The report reads that trace:
     kernels;
   * the device busy share: the union of the kernel and memcpy/memset
     intervals over the window from the first launch to the end of the
-    final synchronize; the idle share is the rest.
+    final synchronize; the idle share is the rest;
+  * by span: the port's ``det.`` spans (``utils/spans.py``), each keyed by
+    its path from its entry (``det.train_step/det.backward``), with its
+    calls, host ms, and the device ms, kernel launches and blocking host
+    syncs it caused, a call of the entry (``span_totals``).
 
 A trace with no device events is an error (exit 1): the tool never
 reports a CPU number as a device one. With ``--cpu`` it profiles the CPU
-only, prints the CPU ops' self time under the label CPU, and reports no
-busy share. The first line names the device.
+only, prints the CPU ops' self time under the label CPU, reports no busy
+share, and gives the spans' calls and host ms alone. The first line
+names the device.
 
     python -m v2x_sim_tpu_torch.tools.xprof_det [--what train] [--batch 16] [--top 30]
 """
@@ -37,14 +42,22 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from v2x_sim_tpu_torch.tools import profile_det
+from v2x_sim_tpu_torch.configs.config import Config
+from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec, generate_batch
 from v2x_sim_tpu_torch.tools.bench_table import OUT_DIR
-from v2x_sim_tpu_torch.tools.common import device_label, synchronize, tool_device
+from v2x_sim_tpu_torch.tools.common import device_label, grid_config, synchronize, tool_device
+from v2x_sim_tpu_torch.train.det_module import DetModule
 
 #: Calls in the traced window.
 STEPS = 3
+#: Predict's decode and NMS settings (the JAX tool's).
+TOPK, SCORE_THRESHOLD, NMS_IOU = 128, 0.3, 0.1
 #: Chrome-trace categories of device activity.
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: Categories of the host's calls into CUDA, which carry the correlation.
+API_CATS = ("cuda_runtime", "cuda_driver")
+#: Runtime calls that block the host until the device has drained.
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
 CATEGORIES = ("cuDNN conv", "GEMM", "elementwise/reduce", "rotated_iou (K1, K2)",
               "memcpy/memset", "other")
 
@@ -80,6 +93,18 @@ def category(name: str, cat: str = "kernel") -> str:
     return "other"
 
 
+def setup(batch: int, grid: str, device: torch.device):
+    """The bf16 DiscoNet module with seeded weights and B=``batch`` scenes
+    of the production synthetic spec, uploaded once."""
+    cfg = Config(grid=grid_config(grid))
+    spec = SyntheticSpec(points_per_agent=8192 if grid == "full" else 2048,
+                         num_vehicles=12, max_gt=32)
+    raw = generate_batch(cfg, spec, batch_size=batch, seed=0)
+    module = DetModule(cfg, mode="disco", compute_dtype=torch.bfloat16, device=device)
+    module.init_weights(0)
+    return module, module.to_device(raw)
+
+
 def step_fn(module, batch: dict, what: str):
     """The call ``what`` names, on a batch already on the device."""
     if what == "train":
@@ -87,14 +112,12 @@ def step_fn(module, batch: dict, what: str):
         return lambda: module.train_step(prepared)
     if what == "prepare":
         return lambda: module.prepare_batch(batch)
-    return lambda: module.predict(batch, profile_det.TOPK, profile_det.NMS_IOU,
-                                  profile_det.SCORE_THRESHOLD)
+    return lambda: module.predict(batch, TOPK, NMS_IOU, SCORE_THRESHOLD)
 
 
 def capture(args, device: torch.device) -> torch.profiler.profile:
     """Trace STEPS warm calls of the step; writes ``<trace_dir>/<what>.json``."""
-    module, batch = profile_det.setup(argparse.Namespace(batch=args.batch, grid=args.grid,
-                                                         mode="disco"), device)
+    module, batch = setup(args.batch, args.grid, device)
     fn = step_fn(module, batch, args.what)
     for _ in range(2):
         fn()
@@ -125,11 +148,110 @@ def _union_us(intervals: List[Tuple[float, float]]) -> float:
     return busy
 
 
-def device_report(path: str, top: int) -> Optional[dict]:
-    """Per-step device self time by category and by kernel, and the busy
-    share, from a chrome trace; None if it holds no device event."""
+def read_events(path: str) -> List[dict]:
+    """The complete ('X') events of a chrome trace."""
     with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def span_paths(spans: List[dict]) -> List[Tuple[float, float, str]]:
+    """(start, end, path) of each of one thread's nested ``det.`` spans, in
+    order of start; a path joins the names of the spans open around a span,
+    outermost first, and its own, by "/"."""
+    out: List[Tuple[float, float, str]] = []
+    stack: List[Tuple[float, float, str]] = []
+    for e in sorted(spans, key=lambda e: (e["ts"], -e["dur"])):
+        while stack and stack[-1][1] <= e["ts"]:
+            stack.pop()
+        item = (e["ts"], e["ts"] + e["dur"], (stack[-1][2] + "/" if stack else "") + e["name"])
+        stack.append(item)
+        out.append(item)
+    return out
+
+
+def innermost(paths: List[Tuple[float, float, str]], times: List[float]) -> List[Optional[str]]:
+    """For each of the sorted ``times``, the path of the innermost span of
+    ``paths`` (``span_paths``') open at it, or None."""
+    out: List[Optional[str]] = []
+    stack: List[Tuple[float, float, str]] = []
+    i = 0
+    for t in times:
+        while i < len(paths) and paths[i][0] <= t:
+            while stack and stack[-1][1] <= paths[i][0]:
+                stack.pop()
+            stack.append(paths[i])
+            i += 1
+        while stack and stack[-1][1] <= t:
+            stack.pop()
+        out.append(stack[-1][2] if stack else None)
+    return out
+
+
+def span_totals(events: List[dict]) -> Dict[str, Dict[str, float]]:
+    """Each ``det.`` span path's calls, host seconds, and, inclusive of the
+    spans under it, the device seconds, kernel launches and blocking syncs
+    it caused, from a trace's complete events.
+
+    The spans are those of the entry's thread, the thread of the first
+    ``det.`` span. A device event (kernel, memcpy, memset) belongs to the
+    innermost span open on that thread when the runtime or driver call
+    that launched it began, the two matched by ``args.correlation``: by
+    time, not by thread, since the backward's kernels are launched from the
+    autograd engine's thread while the entry's thread waits inside
+    ``det.backward``. A blocking sync is a call of ``SYNCS`` that begins
+    inside a span. A span's self time is its value less its children's."""
+    det = [e for e in events if e.get("cat") == "user_annotation" and e["name"].startswith("det.")]
+    if not det:
+        return {}
+    first = min(det, key=lambda e: e["ts"])
+    paths = span_paths([e for e in det if (e.get("pid"), e.get("tid"))
+                        == (first.get("pid"), first.get("tid"))])
+    totals: Dict[str, Dict[str, float]] = {}
+    for s, e, p in paths:
+        t = totals.setdefault(p, dict.fromkeys(("calls", "host_s", "device_s", "launches",
+                                                "syncs"), 0))
+        t["calls"] += 1
+        t["host_s"] += (e - s) / 1e6
+    api = [e for e in events if e.get("cat") in API_CATS]
+    launched = {e["args"]["correlation"]: e["ts"] for e in api
+                if "correlation" in e.get("args", {})}
+    hits = [(launched[e["args"]["correlation"]], e) for e in events
+            if e.get("cat") in DEVICE_CATS and e.get("args", {}).get("correlation") in launched]
+    hits += [(e["ts"], e) for e in api if e["name"] in SYNCS]
+    hits.sort(key=lambda h: h[0])
+    for (_, e), path in zip(hits, innermost(paths, [t for t, _ in hits])):
+        if path is None:
+            continue
+        parts = path.split("/")
+        for n in range(1, len(parts) + 1):
+            t = totals["/".join(parts[:n])]
+            if e["cat"] in DEVICE_CATS:
+                t["device_s"] += e["dur"] / 1e6
+                t["launches"] += e["cat"] == "kernel"
+            else:
+                t["syncs"] += 1
+    return totals
+
+
+def span_report(events: List[dict], device: bool) -> Dict[str, Dict[str, Optional[float]]]:
+    """``span_totals`` a call of each path's entry (its first span), in
+    ms; the device columns None for a CPU trace."""
+    totals = span_totals(events)
+    rep = {}
+    for path, t in totals.items():
+        n = totals[path.split("/")[0]]["calls"]
+        rep[path] = {"calls": t["calls"] / n, "host_ms": 1e3 * t["host_s"] / n,
+                     "device_ms": 1e3 * t["device_s"] / n if device else None,
+                     "launches": t["launches"] / n if device else None,
+                     "syncs": t["syncs"] / n if device else None}
+    return rep
+
+
+def device_report(path: str, top: int) -> Optional[dict]:
+    """Per-step device self time by category and by kernel, the busy
+    share and the spans, from a chrome trace; None if it holds no device
+    event."""
+    events = read_events(path)
     dev = [e for e in events if e.get("cat") in DEVICE_CATS]
     if not dev:
         return None
@@ -153,6 +275,7 @@ def device_report(path: str, top: int) -> Optional[dict]:
         "window_ms": ms(end - start),
         "busy": busy,
         "idle": 1.0 - busy,
+        "spans": span_report(events, device=True),
     }
 
 
@@ -182,6 +305,14 @@ def print_report(rep: dict, kind: str, what: str) -> None:
     print(f"top {len(rep['top_ms'])} ({kind} self time, per step):")
     for n, t in rep["top_ms"]:
         print(f"  {t:9.3f} ms  {n[:160]}")
+    print("by span, a call of its entry (device ms, launches and syncs include the spans below):")
+    print(f"  {'path':56s} {'calls':>6s} {'host ms':>9s} {'device ms':>9s} {'launches':>8s} "
+          f"{'syncs':>6s}")
+    cell = lambda v, f: "-" if v is None else format(v, f)
+    for path, r in rep["spans"].items():
+        print(f"  {path:56s} {r['calls']:6.2f} {r['host_ms']:9.3f} "
+              f"{cell(r['device_ms'], '9.3f'):>9s} {cell(r['launches'], '8.1f'):>8s} "
+              f"{cell(r['syncs'], '6.1f'):>6s}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -194,6 +325,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         prof = capture(args, device)
         if device.type != "cuda":
             rep = cpu_report(prof, args.top)
+            rep["spans"] = span_report(read_events(trace_path(args)), device=False)
             print_report(rep, "CPU", args.what)
             return rep
     rep = device_report(trace_path(args), args.top)

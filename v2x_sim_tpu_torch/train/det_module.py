@@ -40,6 +40,10 @@ parallelism:
   * ``init_weights`` / ``init_teacher_weights``: fresh weights drawn as
     flax's default initializers draw them (``models/init.py``).
 
+While a profiler records, each entry opens its ``det.`` span
+(``det.predict``, ``det.prepare_batch``, ``det.train_step``) and each of
+its stages one inside it (``utils/spans.py``).
+
 The model runs in the plain layout, with targets in plain (H, W, K)
 anchor order; the JAX package's blocked heads and lazy regression decode
 compute the same values for the TPU, and the loss sums do not depend on
@@ -79,6 +83,7 @@ from v2x_sim_tpu_torch.utils.losses import (
     softmax_focal_loss_sum,
 )
 from v2x_sim_tpu_torch.utils.mgda import mgda_grads
+from v2x_sim_tpu_torch.utils.spans import span, spanned
 
 #: A constant learning rate, or a schedule: step count -> learning rate.
 LearningRate = Union[float, Callable[[int], float]]
@@ -239,6 +244,7 @@ class DetModule:
         """The batch entries the module reads, as tensors on this device."""
         return batch_to_device(batch, BATCH_KEYS, self.device)
 
+    @spanned("det.voxelize")
     def model_input(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """(B, A, H, W, D) occupancy in the compute dtype: ``occupancy`` as
         given, else the points voxelized (merged for upperbound), followed
@@ -259,6 +265,7 @@ class DetModule:
             vis = visibility_batch(batch["points"], batch["point_mask"], self.config.grid)
         return vis.to(self.compute_dtype) / OCCUPIED
 
+    @spanned("det.teacher_input")
     def merged_occupancy(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Early-fusion occupancy of a device batch (ops/voxelize.py)."""
         return merged_occupancy(batch["points"], batch["point_mask"], batch["trans"],
@@ -266,6 +273,7 @@ class DetModule:
                                 self.compute_dtype)
 
     @torch.inference_mode()
+    @spanned("det.predict")
     def predict(
         self,
         batch: Mapping[str, Any],
@@ -289,9 +297,10 @@ class DetModule:
         cls, reg = out.cls_logits, out.reg
         if g is not None:  # the peak filter and the top-K read across shard borders
             cls, reg = gather_rows(cls, g), gather_rows(reg, g)
-        boxes, scores, valid = decode_topk(
-            cls, reg, self.anchors, k, score_threshold, agent_mask, peak_window=self.peak_window,
-        )
+        with span("det.decode"):
+            boxes, scores, valid = decode_topk(
+                cls, reg, self.anchors, k, score_threshold, agent_mask,
+                peak_window=self.peak_window)
         return batched_nms(boxes, scores, valid, nms_iou)
 
     # ------------------------------------------------------------------ #
@@ -311,6 +320,7 @@ class DetModule:
         return type(out)(*(t.reshape((b, a) + t.shape[1:]) for t in out))
 
     @torch.no_grad()
+    @spanned("det.prepare_batch")
     def prepare_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """Per-batch preprocessing on the device: ``occupancy``, ``trans``,
         ``agent_mask``, the training targets of :meth:`targets`, and with
@@ -345,6 +355,7 @@ class DetModule:
         return out
 
     @torch.no_grad()
+    @spanned("det.assign")
     def targets(self, bt: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Training targets of a batch on this device, assigned from GT
         (``gt_boxes``, ``gt_mask``) or baked offline (``tgt_pos_idx``/
@@ -376,6 +387,7 @@ class DetModule:
         out["reg_sp_w"] = wts.float()
         return out
 
+    @spanned("det.loss")
     def loss_from_output(
         self, out: DetOutput, prepared: Mapping[str, torch.Tensor],
         teacher_feat: Optional[torch.Tensor] = None,
@@ -419,7 +431,8 @@ class DetModule:
         or None when KD is off or no teacher is loaded."""
         if self.kd_weight <= 0.0 or self.teacher is None:
             return None
-        return self.teacher.kd_target(prepared["teacher_occupancy"])
+        with span("det.teacher"):
+            return self.teacher.kd_target(prepared["teacher_occupancy"])
 
     def loss(
         self, prepared: Mapping[str, torch.Tensor], train: bool = True
@@ -430,6 +443,7 @@ class DetModule:
         out = self.model(prepared["occupancy"], prepared["trans"], am, train=train)
         return self.loss_from_output(out, prepared, self.teacher_features(prepared))
 
+    @spanned("det.train_step")
     def train_step(self, prepared: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One optimization step on a prepared batch. Returns the metrics
         as device tensors; nothing waits for the device.
@@ -450,17 +464,23 @@ class DetModule:
             metrics = self._mgda_backward(prepared)
         else:
             loss, metrics = self.loss(prepared, train=True)
-            loss.backward()
-            all_reduce_([p.grad for p in self.model.parameters() if p.grad is not None],
-                        self.groups)
-            metrics = sum_metrics(metrics, self.groups)
-        # A no-op in value (BatchNorm synced the moments), kept as JAX's pmean.
-        average_([b for b in self.model.buffers() if b.is_floating_point()], self.groups)
-        if self.grad_clip > 0.0:
-            clip_by_global_norm_(
-                [p.grad for p in self.model.parameters() if p.grad is not None], self.grad_clip)
-        set_scheduled_lr(self.optimizer, self.learning_rate, self.step)
-        self.optimizer.step()
+            with span("det.backward"):
+                loss.backward()
+        if self.groups is not None:
+            with span("det.allreduce"):
+                if not self.mgda:
+                    all_reduce_([p.grad for p in self.model.parameters() if p.grad is not None],
+                                self.groups)
+                    metrics = sum_metrics(metrics, self.groups)
+                # A no-op in value (BatchNorm synced the moments), kept as JAX's pmean.
+                average_([b for b in self.model.buffers() if b.is_floating_point()], self.groups)
+        with span("det.optimizer"):
+            if self.grad_clip > 0.0:
+                clip_by_global_norm_(
+                    [p.grad for p in self.model.parameters() if p.grad is not None],
+                    self.grad_clip)
+            set_scheduled_lr(self.optimizer, self.learning_rate, self.step)
+            self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -471,14 +491,16 @@ class DetModule:
         tasks = ["cls_loss", "loc_loss"] + (["kd_loss"] if "kd_loss" in metrics else [])
         params = list(self.model.parameters())
         grads = []
-        for i, key in enumerate(tasks):
-            g = torch.autograd.grad(metrics[key], params, retain_graph=i + 1 < len(tasks),
-                                    allow_unused=True)
-            grads.append([torch.zeros_like(p) if gi is None else gi for p, gi in zip(params, g)])
-            all_reduce_(grads[-1], self.groups)
-        combined, weights = mgda_grads(grads)
-        for p, g in zip(params, combined):
-            p.grad = g
+        with span("det.backward"):
+            for i, key in enumerate(tasks):
+                g = torch.autograd.grad(metrics[key], params, retain_graph=i + 1 < len(tasks),
+                                        allow_unused=True)
+                grads.append([torch.zeros_like(p) if gi is None else gi
+                              for p, gi in zip(params, g)])
+                all_reduce_(grads[-1], self.groups)
+            combined, weights = mgda_grads(grads)
+            for p, g in zip(params, combined):
+                p.grad = g
         metrics = sum_metrics(metrics, self.groups)
         metrics.update({f"mgda_w_{key}": weights[i] for i, key in enumerate(tasks)})
         return metrics
