@@ -184,6 +184,17 @@ Phases, each reported on its own line; any failure exits non-zero:
      the same weights and occupancy: logits and regression within 1e-4
      (TF32 off); (c) graft_entry.dryrun_multichip(4) on 4 gloo ranks
      sharing the card: all five variants' lines.
+ 17. The fused train-mode BatchNorm + ReLU of bf16 maps
+     (csrc/batchnorm.cu through ops/cuda/bn_cu.py): one bf16 disco
+     DetModule train step at B=16 launches each of its four passes 18
+     times (its maps' shapes recorded), a bf16 eval forward none; then at
+     each recorded shape, on random maps, each pass against its plain
+     version (the elementwise passes bit for bit on the same (C,)
+     vectors, the sums within 1e-5 of their terms' magnitudes), timed
+     beside its byte bound (2, 4, 6 and 8 bytes an element) and the plain
+     version, and the Function's forward and backward beside the unfused
+     PyTorch layer's (relu(_bn(...)) under autograd), the yardstick;
+     totals over the step's 18 layers.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -434,7 +445,7 @@ def phase_build() -> None:
     from v2x_sim_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    built = build.build(["rotated_iou"])
+    built = build.build(["rotated_iou", "batchnorm"])
     for name, b in built.items():
         report = [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
         log(f"[1] built {name} -> {os.path.relpath(b.path, ROOT)} in "
@@ -3241,7 +3252,8 @@ def _dist(u, v):
 
 #: The bf16 forms phase 15 (b) times against each other: "earlier" is the
 #: folded train-mode BatchNorm, the conv's bias inside the conv and one
-#: bilinear interpolate; "F4 only" swaps in flax's BatchNorm; "final" is
+#: bilinear interpolate; "F4 only" swaps in flax's BatchNorm (both as
+#: PyTorch operators, before the fused BatchNorm of phase 17); "final" is
 #: the port as it stands (also the bias after the conv's rounding and the
 #: upsample's rows rounded before its columns).
 BF16_FORMS = ("earlier", "F4 only", "final")
@@ -3256,7 +3268,8 @@ def _swap_bf16_forms(form: str):
     from v2x_sim_tpu_torch.models import backbone
     from v2x_sim_tpu_torch.models.seg import unet
 
-    saved = [(m, n, getattr(m, n)) for m, n in ((backbone, "_bn"), (backbone, "_conv"),
+    saved = [(m, n, getattr(m, n)) for m, n in ((backbone, "_bn"), (backbone, "bn_relu"),
+                                                (backbone, "_conv"),
                                                 (backbone, "upsample_bilinear"), (unet, "_conv"))]
     port_bn = backbone._bn
 
@@ -3280,7 +3293,11 @@ def _swap_bf16_forms(form: str):
     def one_interpolate(x, size):
         return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
 
+    def unfused_bn_relu(x, bn, train=False, group=None):  # before the fused bf16 BatchNorm
+        return torch.relu(backbone._bn(x, bn, train, group))
+
     if form != "final":
+        backbone.bn_relu = unfused_bn_relu
         backbone._conv = unet._conv = fused_conv
         backbone.upsample_bilinear = one_interpolate  # the seg decoder's too (upsample_like)
     if form == "earlier":
@@ -3687,6 +3704,164 @@ def phase_bench_entry(card: str, predict_rates: dict, train_rates: dict) -> None
     _dryrun(card)
 
 
+BN_SUM_RTOL = 1e-5  # a pass's float32 sums against the plain version's, of |terms|
+
+
+def _bn_step_shapes(device, cfg, variables, batch, card: str) -> list:
+    """Phase 17's launch counts: one bf16 disco train step at B (18
+    launches of each pass) and a bf16 eval forward (none); returns the
+    shapes of the step's BatchNorm maps in call order."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops.cuda import bn_cu
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    module = DetModule(cfg, "disco", torch.bfloat16, device=device)
+    module.load_flax_variables(variables)
+    prepared = module.prepare_batch(batch)
+    shapes = []
+    fused = bn_cu.batch_norm_relu
+
+    def recording(x, *args):
+        shapes.append(tuple(x.shape))
+        return fused(x, *args)
+
+    bn_cu.reset_launches()
+    bn_cu.batch_norm_relu = recording
+    try:
+        metrics = module.train_step(prepared)
+    finally:
+        bn_cu.batch_norm_relu = fused
+    torch.cuda.synchronize()
+    step = bn_cu.launches()
+    if step != {name: 18 for name in step} or len(shapes) != 18:
+        raise AssertionError(f"a bf16 train step launched {step} over {len(shapes)} maps, not 18 "
+                             "of each pass")
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError("non-finite bf16 training loss")
+    bn_cu.reset_launches()
+    with torch.no_grad():
+        module.model(prepared["occupancy"], prepared["trans"],
+                     prepared["agent_mask"].to(torch.bool))
+    torch.cuda.synchronize()
+    if any(bn_cu.launches().values()):
+        raise AssertionError(f"a bf16 eval forward launched {bn_cu.launches()}")
+    log(f"[17] a bf16 disco train step at B={batch['points'].shape[0]} launched {step} "
+        f"(synchronized), an eval forward none; maps (N, C, H, W): {shapes} [{card}]")
+    del module, prepared, metrics
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_batchnorm(device, cfg, variables, batch, card: str) -> dict:
+    """Phase 17: the fused BatchNorm's passes at a bf16 train step's shapes,
+    held to their plain versions and timed beside their byte bounds and
+    the unfused layer. Returns each pass's step totals for the record."""
+    import collections
+
+    import torch
+
+    from v2x_sim_tpu_torch.models.backbone import BN_MOMENTUM, _bn
+    from v2x_sim_tpu_torch.ops.cuda import bn_cu
+
+    shapes = _bn_step_shapes(device, cfg, variables, batch, card)
+    passes = tuple(bn_cu.PASS_BYTES)
+    total = {p: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for p in passes}
+    layer = {"fused_fwd": 0.0, "fused_bwd": 0.0, "unfused_fwd": 0.0, "unfused_bwd": 0.0}
+    for (n, c, h, w), mult in collections.Counter(shapes).items():
+        gen = torch.Generator(device=device).manual_seed(c)
+        loc = torch.randn(c, device=device, generator=gen) * 0.8
+        scale = torch.rand(c, device=device, generator=gen) * 1.7 + 0.3
+        x = (torch.randn(n, h, w, c, device=device, generator=gen) * scale + loc).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        dy = torch.randn(n, h, w, c, device=device, generator=gen).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        weight = torch.rand(c, device=device, generator=gen) + 0.5
+        bias = torch.randn(c, device=device, generator=gen) * 0.3
+        count = n * h * w
+
+        stats = bn_cu.moments(x)
+        xf = x.float()
+        gap = (stats - bn_cu.moments_plain(x)).abs()
+        mag = torch.stack([xf.abs().mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))])
+        mean, msq = stats.unbind()
+        rstd = torch.rsqrt((msq - mean * mean).clamp(min=0.0) + 1e-5)
+        inv = weight * rstd
+        y = bn_cu.normalize_relu(x, mean, inv, bias)
+        y_equal = torch.equal(y, bn_cu.normalize_relu_plain(x, mean, inv, bias))
+        sums = bn_cu.backward_reduce(dy, y, x, mean)
+        g = bn_cu._relu_grad(dy, y)
+        gap_b = (sums - bn_cu.backward_reduce_plain(dy, y, x, mean)).abs()
+        mag_b = torch.stack([g.abs().sum((0, 2, 3)),
+                             (g * (xf - mean[:, None, None])).abs().sum((0, 2, 3))])
+        del g, xf
+        c1 = (sums[0] / count).contiguous()
+        c2 = torch.where(msq - mean * mean >= 0, rstd * rstd * sums[1] / count, 0.0)
+        dx = bn_cu.backward_dx(dy, y, x, mean, inv, c1, c2)
+        dx_equal = torch.equal(dx, bn_cu.backward_dx_plain(dy, y, x, mean, inv, c1, c2))
+        worst = max(float((gap / mag).max()), float((gap_b / mag_b).max()))
+        if not (y_equal and dx_equal and worst <= BN_SUM_RTOL):
+            raise AssertionError(f"bn passes at {(n, c, h, w)} against plain: normalize_relu "
+                                 f"equal {y_equal}, backward_dx equal {dx_equal}, sums "
+                                 f"{worst:.2e} of their terms (limit {BN_SUM_RTOL})")
+        calls = {
+            "moments": (lambda: bn_cu.moments(x), lambda: bn_cu.moments_plain(x)),
+            "normalize_relu": (lambda: bn_cu.normalize_relu(x, mean, inv, bias),
+                               lambda: bn_cu.normalize_relu_plain(x, mean, inv, bias)),
+            "backward_reduce": (lambda: bn_cu.backward_reduce(dy, y, x, mean),
+                                lambda: bn_cu.backward_reduce_plain(dy, y, x, mean)),
+            "backward_dx": (lambda: bn_cu.backward_dx(dy, y, x, mean, inv, c1, c2),
+                            lambda: bn_cu.backward_dx_plain(dy, y, x, mean, inv, c1, c2)),
+        }
+        row = []
+        for p, (kernel, plain) in calls.items():
+            ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 3, warmup=1)
+            bound_ms = bn_cu.PASS_BYTES[p] * x.numel() / PEAK_HBM_BYTES * 1e3
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                total[p][key] += mult * v
+            row.append(f"{p} {ms:.4f} ms (bound {bound_ms:.4f}, {100 * bound_ms / ms:.1f}%; "
+                       f"plain {plain_ms:.3f})")
+        del y, dx, sums
+
+        # The whole layer: the Function (its small (C,) ops included) and
+        # the unfused PyTorch layer, forward and backward under autograd.
+        bn = torch.nn.BatchNorm2d(c, eps=1e-5).to(device)
+        with torch.no_grad():
+            bn.weight.copy_(weight)
+            bn.bias.copy_(bias)
+        xg = x.clone().requires_grad_(True)
+        forms = {
+            "fused": lambda: bn_cu.batch_norm_relu(xg, bn.weight, bn.bias, bn.running_mean,
+                                                   bn.running_var, bn.eps, BN_MOMENTUM),
+            "unfused": lambda: torch.relu(_bn(xg, bn, True)),
+        }
+        times = {}
+        for form, fwd in forms.items():
+            times[f"{form}_fwd"] = time_ms(fwd, 5)
+            out = fwd()
+            times[f"{form}_bwd"] = time_ms(lambda: torch.autograd.grad(
+                out, (xg, bn.weight, bn.bias), dy, retain_graph=True), 5)
+            del out
+            torch.cuda.empty_cache()
+        for key, v in times.items():
+            layer[key] += mult * v
+        log(f"[17] ({n}, {c}, {h}, {w}) x{mult}: {'; '.join(row)}; the layer fused fwd "
+            f"{times['fused_fwd']:.3f} / bwd {times['fused_bwd']:.3f} ms, unfused fwd "
+            f"{times['unfused_fwd']:.3f} / bwd {times['unfused_bwd']:.3f} ms; sums within "
+            f"{worst:.1e} of their terms [{card}]")
+        del x, dy, xg, bn, stats, mean, msq, rstd, inv, c1, c2
+        torch.cuda.empty_cache()
+    kernels = sum(t["ms"] for t in total.values())
+    bound = sum(t["bound_ms"] for t in total.values())
+    log(f"[17] a step's 18 layers: the four passes {kernels:.3f} ms against the byte bound "
+        f"{bound:.3f} ms ({100 * bound / kernels:.1f}%; "
+        + ", ".join(f"{p} {t['ms']:.3f}/{t['bound_ms']:.3f}" for p, t in total.items())
+        + f"); the Function fwd {layer['fused_fwd']:.3f} + bwd {layer['fused_bwd']:.3f} ms, "
+        f"the unfused layer fwd {layer['unfused_fwd']:.3f} + bwd {layer['unfused_bwd']:.3f} ms "
+        f"[{card}]")
+    return {"passes": total, "layer": layer, "launches": {p: 18 for p in passes}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -3762,6 +3937,7 @@ def main() -> int:
     p15 = timed("bf16, layouts, nuScenes, pth", phase_bf16_host, device, cfg, variables,
                 train["batch"], card, train_rates)["launches"]
     timed("bench, entry, dry run", phase_bench_entry, card, predict_rates, train_rates)
+    bn = timed("batchnorm", phase_batchnorm, device, cfg, variables, train["batch"], card)
     log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"
@@ -3826,6 +4002,21 @@ def main() -> int:
         "bound_by": assign["periodic"][0]["bound_by"],
         "library_ms": None,
     }]
+    # The fused BatchNorm's passes: totals over a bf16 train step's 18
+    # layers (phase 17); launches of phase 17's step.
+    kernels += [{
+        "name": f"bn_{name}",
+        "route": "cuda",
+        "source": "v2x_sim_tpu_torch/csrc/batchnorm.cu",
+        "replaces": None,
+        "launches": bn["launches"][name],
+        "max_abs_err": None,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    } for name, t in bn["passes"].items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

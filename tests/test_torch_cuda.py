@@ -1,7 +1,10 @@
 """The rotated-IoU kernel wrapper (ops/cuda/iou_cu.py), all four entry
 points: their CPU route, their input checks, and — on a CUDA card only —
 the CUDA kernel against the plain PyTorch version (the forced-anchor
-entry's CPU cases are in tests/test_torch_forced_anchor.py).
+entry's CPU cases are in tests/test_torch_forced_anchor.py). On the card
+too: the fused BatchNorm + ReLU passes (ops/cuda/bn_cu.py; their CPU cases
+are in tests/test_torch_batchnorm.py) against their plain versions at
+the widths and resolutions of a B=16 DiscoNet training step.
 
 This file imports neither JAX nor tests/conftest.py's setup, so it runs
 on the card's machine, which has no JAX:
@@ -14,7 +17,7 @@ import pytest
 import torch
 
 from v2x_sim_tpu_torch.ops import iou_sh
-from v2x_sim_tpu_torch.ops.cuda import iou_cu
+from v2x_sim_tpu_torch.ops.cuda import bn_cu, iou_cu
 
 
 def _random_boxes(rng, n, spread=6.0):
@@ -355,3 +358,144 @@ def test_forced_anchor_kernel_matches_plain_on_card(cuda_device):
     assert bool(got[2].any()) and not bool(got[2][~tm].any())
     with pytest.raises(TypeError):
         iou_cu.forced_anchor(tg, tm.to(torch.uint8), anchors, grid)
+
+
+#: The train-mode BatchNorm maps of a B=16 DiscoNet step (16 scenes x 6
+#: agents): each stage's width at its resolution.
+BN_SHAPES = ((96, 32, 256, 256), (96, 64, 128, 128), (96, 128, 64, 64), (96, 256, 32, 32),
+             (96, 512, 16, 16))
+#: A pass's float32 sums against PyTorch's, relative to the sum of the
+#: terms' magnitudes (both sum ~1e5-1e7 terms in float32, in other orders).
+BN_SUM_RTOL = 1e-5
+#: The whole layer's outputs near 0, against the unfused layer's.
+BN_NEAR_ZERO = 1e-5
+
+
+def _bn_operands(shape, device, seed):
+    """A channels-last bf16 map with per-channel mean and scale, as conv
+    outputs look, its cotangent, and an affine."""
+    n, c, h, w = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    loc = torch.randn(c, device=device, generator=gen) * 0.8
+    scale = torch.rand(c, device=device, generator=gen) * 1.7 + 0.3
+    x = torch.randn(n, h, w, c, device=device, generator=gen) * scale + loc
+    dy = torch.randn(n, h, w, c, device=device, generator=gen)
+    weight = torch.rand(c, device=device, generator=gen) + 0.5
+    bias = torch.randn(c, device=device, generator=gen) * 0.3
+    return (x.to(torch.bfloat16).permute(0, 3, 1, 2), dy.to(torch.bfloat16).permute(0, 3, 1, 2),
+            weight, bias)
+
+
+def _assert_sums_close(got, want, magnitude, what):
+    gap = (got - want).abs()
+    assert bool((gap <= BN_SUM_RTOL * magnitude).all()), (what, float((gap / magnitude).max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=lambda s: f"c{s[1]}")
+def test_batchnorm_kernels_match_plain_on_card(cuda_device, shape):
+    """Each pass of csrc/batchnorm.cu against its plain version: the
+    reductions within BN_SUM_RTOL; the elementwise passes, given the same
+    (C,) vectors, bit for bit; one launch a call. Then the whole Function
+    against the unfused layer as tests/test_torch_batchnorm.py holds it."""
+    from tests.test_torch_batchnorm import _assert_same_layer
+
+    x, dy, weight, bias = _bn_operands(shape, cuda_device, seed=shape[1])
+    before = bn_cu.launches()
+    xf = x.float()
+    stats = bn_cu.moments(x)
+    _assert_sums_close(stats, bn_cu.moments_plain(x),
+                       torch.stack([xf.abs().mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))]),
+                       "moments")
+    mean, msq = stats.unbind()
+    var = (msq - mean * mean).clamp(min=0.0)
+    rstd = torch.rsqrt(var + 1e-5)
+    inv = weight * rstd
+    y = bn_cu.normalize_relu(x, mean, inv, bias)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, bn_cu.normalize_relu_plain(x, mean, inv, bias))
+    sums = bn_cu.backward_reduce(dy, y, x, mean)
+    g = bn_cu._relu_grad(dy, y)
+    xc = xf - mean[:, None, None]
+    _assert_sums_close(sums, bn_cu.backward_reduce_plain(dy, y, x, mean),
+                       torch.stack([g.abs().sum((0, 2, 3)), (g * xc).abs().sum((0, 2, 3))]),
+                       "backward sums")
+    del g, xc, xf
+    count = x.numel() // x.shape[1]
+    c1 = (sums[0] / count).contiguous()
+    c2 = torch.where(msq - mean * mean >= 0, rstd * rstd * sums[1] / count, 0.0)
+    dx = bn_cu.backward_dx(dy, y, x, mean, inv, c1, c2)
+    assert torch.equal(dx, bn_cu.backward_dx_plain(dy, y, x, mean, inv, c1, c2))
+    torch.cuda.synchronize()
+    assert bn_cu.launches() == {k: v + 1 for k, v in before.items()}
+
+    runs = []
+    for fused in (True, False):
+        bn = torch.nn.BatchNorm2d(shape[1], eps=1e-5).to(cuda_device)
+        with torch.no_grad():
+            bn.weight.copy_(weight)
+            bn.bias.copy_(bias)
+        xg = x.clone().requires_grad_(True)
+        if fused:
+            out = bn_cu.batch_norm_relu(xg, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                        bn.eps, 0.9)
+        else:
+            from v2x_sim_tpu_torch.models.backbone import _bn
+
+            out = torch.relu(_bn(xg, bn, True))
+        out.backward(dy)
+        runs.append({"y": out.detach(), "dx": xg.grad, "dweight": bn.weight.grad,
+                     "dbias": bn.bias.grad, "running_mean": bn.running_mean,
+                     "running_var": bn.running_var})
+        del out, xg
+    torch.cuda.synchronize()
+    # The two layers' moments are float32 sums in other orders (the
+    # kernel's, PyTorch's CUDA mean), so an output near 0 may move by
+    # their difference times inv, beyond its own ulp (as
+    # tests/test_torch_bf16.py allows flax's BatchNorm against the port's).
+    _assert_same_layer(*runs, y_atol=BN_NEAR_ZERO)
+
+
+@pytest.mark.gpu
+def test_batchnorm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = torch.randn(2, 32, 8, 8, device=cuda_device).contiguous(memory_format=torch.channels_last)
+    v = torch.zeros(32, device=cuda_device)
+    with pytest.raises(TypeError):
+        bn_cu.moments(x)  # float32
+    with pytest.raises(ValueError):
+        bn_cu.moments(x.to(torch.bfloat16).contiguous())  # NCHW memory
+    with pytest.raises(ValueError):
+        bn_cu.moments(torch.zeros(2, 12, 8, 8, dtype=torch.bfloat16, device=cuda_device)
+                      .contiguous(memory_format=torch.channels_last))  # C not a multiple of 8
+    with pytest.raises(ValueError):
+        bn_cu.normalize_relu(x.to(torch.bfloat16), v, v.double(), v)  # a float64 vector
+    with pytest.raises(TypeError):
+        bn_cu.batch_norm_relu(x, v, v, v, v.clone(), 1e-5, 0.9)
+
+
+@pytest.mark.gpu
+def test_batchnorm_launches_of_a_bf16_train_step(cuda_device):
+    """A bf16 DiscoNet train forward and backward launches each pass 18
+    times (10 BatchNorms in the encoder, 8 in the decoder); a bf16
+    inference forward none."""
+    from v2x_sim_tpu_torch.configs.config import Config, GridConfig
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+
+    cfg = Config(grid=GridConfig(voxel_size=(1.0, 1.0, 0.625)))
+    model = DetModel(cfg, "disco").to(cuda_device)
+    h, w, d = cfg.grid.grid_shape
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    occ = (torch.rand(2, cfg.num_agents, h, w, d, device=cuda_device, generator=gen) < 0.05)
+    occ = occ.to(torch.bfloat16)
+    trans = torch.eye(4, device=cuda_device).expand(2, cfg.num_agents, cfg.num_agents, 4, 4)
+    mask = torch.ones(2, cfg.num_agents, dtype=torch.bool, device=cuda_device)
+    bn_cu.reset_launches()
+    with torch.no_grad():
+        model(occ, trans.contiguous(), mask)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in bn_cu.launches().values())
+    out = model(occ, trans.contiguous(), mask, train=True)
+    out.cls_logits.float().sum().backward()
+    torch.cuda.synchronize()
+    assert bn_cu.launches() == {name: 18 for name in ("moments", "normalize_relu",
+                                                      "backward_reduce", "backward_dx")}

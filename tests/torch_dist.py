@@ -208,3 +208,38 @@ def spatial_train_checks(rank: int, world: int, init_method: str, cfg, det_cases
     res = module.predict(local, max_boxes=predict["max_boxes"])
     out["predict"] = _numpy(res._asdict())
     return out
+
+
+def bn_relu_ranks(rank: int, world: int, init_method: str, inputs: Mapping[str, Any]
+                  ) -> Dict[str, Any]:
+    """Rank function over a (world, 1) mesh: one bf16 train-mode BatchNorm +
+    ReLU layer on this rank's map ``inputs["x"][rank]``, fused
+    (``bn_cu.batch_norm_relu``) and unfused (``relu(_bn(...))``), its
+    moments over the data group; forward and backward of
+    ``inputs["dy"][rank]``. Returns each one's output, gradients and
+    running stats (float32 numpy)."""
+    from v2x_sim_tpu_torch.models.backbone import BN_MOMENTUM, _bn
+    from v2x_sim_tpu_torch.ops.cuda import bn_cu
+
+    mesh = _mesh(rank, world, init_method)
+
+    def bf16(a):
+        return torch.from_numpy(a).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    out: Dict[str, Any] = {}
+    for name in ("fused", "unfused"):
+        bn = torch.nn.BatchNorm2d(inputs["weight"].shape[0], eps=1e-5)
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(inputs["weight"]))
+            bn.bias.copy_(torch.from_numpy(inputs["bias"]))
+        x = bf16(inputs["x"][rank]).requires_grad_(True)
+        if name == "fused":
+            y = bn_cu.batch_norm_relu(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                      bn.eps, BN_MOMENTUM, mesh.data_group)
+        else:
+            y = torch.relu(_bn(x, bn, True, mesh.data_group))
+        y.backward(bf16(inputs["dy"][rank]))
+        out[name] = {k: v.detach().float().numpy() for k, v in (
+            ("y", y), ("dx", x.grad), ("dweight", bn.weight.grad), ("dbias", bn.bias.grad),
+            ("running_mean", bn.running_mean), ("running_var", bn.running_var))}
+    return out

@@ -31,7 +31,13 @@ bf16 once. With a process group (``DetModel.set_process_group``, JAX's
 ``axis_name``), the batch moments E[x] and E[x^2] are averaged over the
 group's ranks before the variance, with the gradient flowing through
 that average, so every rank normalizes by the global batch's statistics
-and stores the same running stats.
+and stores the same running stats. A bf16 map in training takes
+:func:`bn_relu`'s fused path: BatchNorm and the ReLU after it as one
+autograd Function of four passes (``ops/cuda/bn_cu.py``; hand-written
+CUDA on the card, their plain PyTorch version on the CPU), the same
+function with its gradient in closed form, saving no float32 copy of the
+map. Float32 and float64 maps, and inference, run :func:`_bn` and a
+ReLU.
 
 Row sharding (a model's ``spatial_group``, JAX's ``spatial_mesh``): each
 rank holds its rows of every map (``parallel/spatial.py``); the 3x3 convs
@@ -49,6 +55,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from v2x_sim_tpu_torch.ops.cuda import bn_cu
 from v2x_sim_tpu_torch.parallel import spatial
 from v2x_sim_tpu_torch.parallel.mesh import group_size, psum
 
@@ -114,7 +121,9 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) ->
     module docstring), averaged over ``group`` (a group or a sequence of
     groups, ``mesh.group_list``) when one is given, and updates the
     running stats; a bf16 map is normalized in float32 and rounded once,
-    as flax does."""
+    as flax does. ``ConvBlock`` takes :func:`bn_relu`, which sends a bf16
+    map in training to the fused Function instead; this form is what it
+    is held to."""
     if not train:
         return F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
@@ -134,6 +143,18 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) ->
         return y.to(x.dtype)
     shift = bn.bias - mean * inv
     return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) -> torch.Tensor:
+    """``relu(_bn(x, bn, train, group))``. A bf16 map in training takes the
+    fused Function (``bn_cu.batch_norm_relu``): the kernels for a CUDA map,
+    their plain version for a CPU one. Elsewhere the ReLU runs in place on
+    ``_bn``'s fresh output: the caller still holds ``x``, so a second
+    output would hold three maps at once where the block held two."""
+    if train and x.dtype == torch.bfloat16:
+        return bn_cu.batch_norm_relu(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                     bn.eps, BN_MOMENTUM, group)
+    return torch.relu_(_bn(x, bn, train, group))
 
 
 class ConvBlock(nn.Module):
@@ -164,8 +185,8 @@ class ConvBlock(nn.Module):
     def run(self, x: torch.Tensor, train: bool, bn_group, spatial_group) -> torch.Tensor:
         """The block with the groups given: BatchNorm's moments over
         ``bn_group``, the convs on a row shard over ``spatial_group``."""
-        x = torch.relu(_bn(conv3x3(x, self.conv1, spatial_group), self.bn1, train, bn_group))
-        return torch.relu(_bn(conv3x3(x, self.conv2, spatial_group), self.bn2, train, bn_group))
+        x = bn_relu(conv3x3(x, self.conv1, spatial_group), self.bn1, train, bn_group)
+        return bn_relu(conv3x3(x, self.conv2, spatial_group), self.bn2, train, bn_group)
 
 
 class BatchNormGroup:

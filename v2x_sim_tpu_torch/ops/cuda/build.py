@@ -7,7 +7,9 @@ source and the flags, so an edited source rebuilds) and loads with
 a kernel wrapper builds its library, and ``build`` compiles several
 sources at once, one ``nvcc`` process each. A source from another
 directory (another version of a kernel, to time against this one) builds
-the same way, named by its content hash.
+the same way, named by its content hash. The kernel wrappers share
+``on_cpu`` (which route a call takes) and ``raise_on_error`` (the C
+entries' return code).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, NamedTuple, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -91,3 +95,22 @@ def build(names: Sequence[str], csrc: Path = CSRC) -> Dict[str, Built]:
 def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """Build ``<csrc>/<name>.cu`` if needed and load it (once per process)."""
     return ctypes.CDLL(str(build([name], csrc)[name].path))
+
+
+def on_cpu(*ts: torch.Tensor) -> bool:
+    """True when every operand lies on the CPU (the wrapper takes the plain
+    version); raises on a mix of devices or on a device that is neither
+    CPU nor CUDA."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"operands on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cpu"
+
+
+def raise_on_error(rc: int, what: str) -> None:
+    """Raises when a C entry returned a cudaError_t other than 0."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")

@@ -98,18 +98,6 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    """True when every operand lies on the CPU; raises on a mix of
-    devices or on a device that is neither CPU nor CUDA."""
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"operands on different devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cpu"
-
-
 def _check_cuda_operand(t: torch.Tensor, name: str) -> None:
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -117,16 +105,11 @@ def _check_cuda_operand(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on_error(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
-
-
 def rotated_iou_pairs_soa(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.Tensor:
     """(5, N) x (5, N) field-major (x, y, l, w, yaw) float32 -> (N,) IoU."""
     if a_soa.dim() != 2 or a_soa.shape[0] != 5 or a_soa.shape != b_soa.shape:
         raise ValueError(f"expected two (5, N) operands, got {tuple(a_soa.shape)} and {tuple(b_soa.shape)}")
-    if _on_cpu(a_soa, b_soa):
+    if build.on_cpu(a_soa, b_soa):
         return iou_sh.rotated_iou(a_soa.T, b_soa.T)
     _check_cuda_operand(a_soa, "a_soa")
     _check_cuda_operand(b_soa, "b_soa")
@@ -139,7 +122,7 @@ def rotated_iou_pairs_soa(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.Ten
             a_soa.data_ptr(), b_soa.data_ptr(), out.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(rc, "rotated_iou_pairs")
+    build.raise_on_error(rc, "rotated_iou_pairs")
     rotated_iou_pairs_soa.launches += 1
     return out
 
@@ -156,7 +139,7 @@ def rotated_iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Te
         raise ValueError(
             f"expected (G, N, 5) and (G, M, 5), got {tuple(boxes_a.shape)} and {tuple(boxes_b.shape)}"
         )
-    if _on_cpu(boxes_a, boxes_b):
+    if build.on_cpu(boxes_a, boxes_b):
         return iou_sh.rotated_iou_matrix(boxes_a, boxes_b)
     _check_cuda_operand(boxes_a, "boxes_a")
     _check_cuda_operand(boxes_b, "boxes_b")
@@ -169,7 +152,7 @@ def rotated_iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Te
             boxes_a.data_ptr(), boxes_b.data_ptr(), out.data_ptr(), g, n, m,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(rc, "rotated_iou_matrix")
+    build.raise_on_error(rc, "rotated_iou_matrix")
     rotated_iou_matrix.launches += 1
     return out
 
@@ -185,7 +168,7 @@ def rotated_iou_pairs_soa_periodic(a_soa: torch.Tensor, b_soa: torch.Tensor) -> 
     n, nb = a_soa.shape[1], b_soa.shape[1]
     if n == 0 or nb % n:
         raise ValueError(f"pair count {nb} is not a multiple of the period {n}")
-    if _on_cpu(a_soa, b_soa):
+    if build.on_cpu(a_soa, b_soa):
         return iou_sh.rotated_iou_pairs_soa_periodic(a_soa, b_soa)
     _check_cuda_operand(a_soa, "a_soa")
     _check_cuda_operand(b_soa, "b_soa")
@@ -197,7 +180,7 @@ def rotated_iou_pairs_soa_periodic(a_soa: torch.Tensor, b_soa: torch.Tensor) -> 
             a_soa.data_ptr(), b_soa.data_ptr(), out.data_ptr(), n, nb,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(rc, "rotated_iou_pairs_periodic")
+    build.raise_on_error(rc, "rotated_iou_pairs_periodic")
     rotated_iou_pairs_soa_periodic.launches += 1
     return out
 
@@ -227,7 +210,7 @@ def forced_anchor(gt_boxes: torch.Tensor, gt_mask: torch.Tensor, anchors: torch.
         raise ValueError(f"expected (B, M, 5) GT, a (B, M) mask and ({grid.bev_shape}, K, 5) "
                          f"anchors, got {tuple(gt_boxes.shape)}, {tuple(gt_mask.shape)} and "
                          f"{tuple(anchors.shape)}")
-    if _on_cpu(gt_boxes, gt_mask, anchors):
+    if build.on_cpu(gt_boxes, gt_mask, anchors):
         from v2x_sim_tpu_torch.ops.assign import forced_anchor_plain  # assign imports this module
 
         return forced_anchor_plain(gt_boxes, gt_mask, anchors, grid)
@@ -253,7 +236,7 @@ def forced_anchor(gt_boxes: torch.Tensor, gt_mask: torch.Tensor, anchors: torch.
             own_k.data_ptr(), force.data_ptr(), cell.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(rc, "forced_anchor")
+    build.raise_on_error(rc, "forced_anchor")
     forced_anchor.launches += 1
     return own_iou, own_k, force, cell
 
