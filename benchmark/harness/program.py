@@ -9,6 +9,7 @@ port the entry (``DetModule``: ``prepare_batch`` and ``train_step``, or
 from __future__ import annotations
 
 import contextlib
+import inspect
 from typing import Dict
 from unittest import mock
 
@@ -17,6 +18,9 @@ import torch
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: The batch entries the entry reads: inputs and ground truth.
 INPUT_KEYS = ("points", "point_mask", "trans", "agent_mask", "gt_boxes", "gt_mask")
+#: A ``fusion`` key of the files under the name the port's constructor
+#: gives it, where the two differ (``DiscoFusion(hidden=...)``).
+PORT_NAMES = {"edge_hidden": "hidden"}
 
 
 def port_config(config: dict):
@@ -62,18 +66,53 @@ def build(config: dict, state_dict: Dict[str, torch.Tensor], device: torch.devic
     prec, opt = config["precision"], config["optimizer"]
     if prec["parameters"] != "float32" or prec["loss_sums"] != "float32":
         raise ValueError("the port keeps float32 parameters and loss sums")
-    fusion = config["fusion"]
-    module = DetModule(port_config(config), config["mode"],
-                       compute_dtype=DTYPES[prec["activations"]], device=device,
-                       learning_rate=opt["lr"], width_mult=wm,
-                       v2v_rounds=fusion.get("rounds", 3),
-                       v2v_msg_norm=fusion.get("msg_norm", False))
+    with fusion_keywords(config.get("fusion", {})):
+        module = DetModule(port_config(config), config["mode"],
+                           compute_dtype=DTYPES[prec["activations"]], device=device,
+                           learning_rate=opt["lr"], width_mult=wm)
     defaults = module.optimizer.defaults
     if (tuple(defaults["betas"]) != tuple(opt["betas"]) or defaults["eps"] != opt["eps"]
             or type(module.optimizer).__name__ != "Adam"):
         raise ValueError(f"the port's optimizer {defaults} is not the file's {opt}")
     module.model.load_state_dict(state_dict, strict=True)
     return module
+
+
+@contextlib.contextmanager
+def fusion_keywords(fusion: dict):
+    """Inside it, the fusion module the port's ``DetModel`` builds for its
+    mode (``models/det/net.py::build_fusion``) is constructed with every
+    key of the configuration's ``fusion`` block as a keyword, over what
+    ``build_fusion`` passes. Raises where the mode has no fusion module to
+    take a key, or its constructor has no such keyword: no key of the file
+    goes unapplied."""
+    from v2x_sim_tpu_torch.models.det import net
+
+    build_fusion = net.build_fusion
+    given = {PORT_NAMES.get(k, k): v for k, v in fusion.items()}
+
+    def build(mode, *args, **kwargs):
+        with torch.device("meta"):
+            probe = build_fusion(mode, *args, **kwargs)
+        if probe is None:
+            if given:
+                raise ValueError(f"mode {mode!r} has no fusion module to take {sorted(fusion)}")
+            return None
+        cls = type(probe)
+        init = cls.__init__
+        takes = inspect.signature(init).parameters
+        unknown = sorted(k for k in fusion if PORT_NAMES.get(k, k) not in takes)
+        if unknown:
+            raise ValueError(f"the port's {cls.__name__} takes no fusion key {unknown}")
+
+        def init_given(self, *a, **kw):
+            init(self, *a, **{**kw, **given})
+
+        with mock.patch.object(cls, "__init__", init_given):
+            return build_fusion(mode, *args, **kwargs)
+
+    with mock.patch.object(net, "build_fusion", build):
+        yield
 
 
 @contextlib.contextmanager

@@ -1,7 +1,9 @@
-"""Per-layer readers that more than one metric file uses: a metric of the
-same arithmetic for train and predict cells is two files (its name takes
-the suffix of the end-to-end metric it moves), each importing its body
-from here. ``BENCHMARK.json``'s ``workloads`` decides the cells."""
+"""Per-layer reader bodies that more than one metric file uses: a metric
+of the same arithmetic for train and predict cells is two files (its name
+takes the suffix of the end-to-end metric it moves), each importing its
+body from here, and each span metric reads its span through
+``span_per_call`` or ``span_ms``. ``BENCHMARK.json``'s ``workloads``
+decides the cells."""
 
 
 def mfu_pct(r):
@@ -20,3 +22,21 @@ def idle_pct(r):
     if r.trace is None:
         return None
     return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
+
+
+def span_per_call(r, paths, field, entry):
+    """The sum of ``field`` (``harness/spans.py``: device_s, launches or
+    syncs) over the program's span ``paths`` in the traced stretch, a call
+    of the span ``entry``; None where the trace, the entry or a path is
+    absent."""
+    spans = r.trace.spans if r.trace is not None else {}
+    calls = spans.get(entry, {}).get("calls")
+    if not calls or any(p not in spans for p in paths):
+        return None
+    return sum(spans[p][field] for p in paths) / calls
+
+
+def span_ms(r, path, entry):
+    """Device milliseconds of the span ``path`` a call of ``entry``."""
+    s = span_per_call(r, [path], "device_s", entry)
+    return None if s is None else 1e3 * s

@@ -10,7 +10,9 @@ read for:
     ``v2x_sim_tpu_torch/tools/xprof_det.py``'s report, commit 73ef7cd);
   * each kernel's launches and device seconds, by name;
   * the device's idle gaps, each named by the innermost harness span and
-    the innermost operator open on the harness's thread when it began.
+    the innermost operator open on the harness's thread when it began;
+  * the program's ``det.`` spans: each span path's calls, device seconds,
+    kernel launches and blocking syncs (``harness/spans.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+from benchmark.harness.spans import DEVICE_CATS, span_totals
+
 WINDOW = "bench.window"
 
 
@@ -35,6 +38,8 @@ class TraceSummary:
     kernels: Dict[str, List[float]] = field(default_factory=dict)
     #: "span | operator" -> idle device seconds that began there
     idle: Dict[str, float] = field(default_factory=dict)
+    #: ``det.`` span path -> calls, host_s, device_s, launches, syncs
+    spans: Dict[str, Dict[str, float]] = field(default_factory=dict)
 
     def kernel_time(self, fragment: str) -> Tuple[int, float]:
         """Launches and device seconds of every kernel whose name holds
@@ -108,6 +113,7 @@ def summarize(events: List[dict]) -> TraceSummary:
     for (s, e), span, op in zip(gaps, _innermost(spans, starts), _innermost(ops, starts)):
         key = f"{span} | {op}"
         summary.idle[key] = summary.idle.get(key, 0.0) + (e - s) / 1e6
+    summary.spans = span_totals(events)
     return summary
 
 

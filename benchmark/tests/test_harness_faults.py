@@ -1,6 +1,6 @@
 """A run of each cell on the CPU at 64x64x8 (the look for a card skipped)
 reads ``correct`` true, and with the timed path broken underneath reads
-it false: for the training cell a step that leaves the state unchanged,
+it false: for the training cells a step that leaves the state unchanged,
 half of the batch left out with the loss's mean taken over the rest, and
 a step's new weights of one leaf altered where they are produced (their
 change doubled); for the prediction cells half of the batch left out, a
@@ -9,7 +9,7 @@ it keeps every valid candidate, or its IoU matrix reads all 0 or all 1.
 The float8 control (the
 reference in the program's place, one precision below bfloat16) reads
 false too. At
-this size the training cell's program runs its activations in float32:
+this size the training cells' program runs its activations in float32:
 the limits are set for bfloat16 at the cell's own size, where the tiny
 model's bfloat16 noise would already fail them."""
 
@@ -52,7 +52,7 @@ def _run(name, break_module, monkeypatch):
     return C.run_cell(name, SEED, 0.5, False, CPU, time.time(), tweak=_tweak)
 
 
-@pytest.mark.parametrize("name", ["disco_train", "v2v_predict", "disco_predict"])
+@pytest.mark.parametrize("name", ["disco_train", "v2v_train", "v2v_predict", "disco_predict"])
 def test_a_sound_run_reads_correct(name, monkeypatch):
     r = _run(name, lambda module: None, monkeypatch)
     assert r["correct"] is True and r["failed"] == 0 and r["attempted"] >= 1
@@ -83,10 +83,11 @@ def _update_altered(module):
     module.train_step = altered
 
 
+@pytest.mark.parametrize("name", ["disco_train", "v2v_train"])
 @pytest.mark.parametrize("fault", [_unchanged, _half_train, _update_altered],
                          ids=["state_unchanged", "half_batch", "update_altered"])
-def test_training_faults_read_not_correct(fault, monkeypatch):
-    r = _run("disco_train", fault, monkeypatch)
+def test_training_faults_read_not_correct(name, fault, monkeypatch):
+    r = _run(name, fault, monkeypatch)
     assert r["correct"] is False and r["failed"] > 0
     assert list(r)[-1] == "checks"
 
@@ -154,7 +155,7 @@ def test_prediction_faults_read_not_correct(name, fault, monkeypatch):
     assert r["correct"] is False and r["failed"] > 0
 
 
-@pytest.mark.parametrize("name", ["disco_train", "v2v_predict", "disco_predict"])
+@pytest.mark.parametrize("name", ["disco_train", "v2v_train", "v2v_predict", "disco_predict"])
 def test_the_float8_control_reads_not_correct(name):
     cell = C.load_cell(name)
     readings = calibrate.control_readings(name, SEED, CPU, tweak=shrink)

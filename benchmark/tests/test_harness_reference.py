@@ -56,8 +56,12 @@ def test_reference_logits_and_predictions_match_the_port(name):
     assert numbers["count_gap"] == 0.0 and numbers["nms_errors"] == 0.0
 
 
-def test_reference_training_matches_the_port():
-    c = _cell("disco_train")
+# The worst leaf's first gradient in float32: V2VNet's three GRU rounds
+# lengthen the backward's path, and its encoder's first BatchNorm leaves
+# read up to 1.9e-3 from rounding alone (its loss agrees to 1e-5).
+@pytest.mark.parametrize("name, grad_tol", [("disco_train", 1e-3), ("v2v_train", 4e-3)])
+def test_reference_training_matches_the_port(name, grad_tol):
+    c = _cell(name)
     pool = C.make_pool(c, SEED, CPU)
     sd = make_state_dict(C.skeleton(c), SEED, CPU)
     module = program.build(c.config, sd, CPU)
@@ -74,4 +78,4 @@ def test_reference_training_matches_the_port():
     deltas = {k: primed["params"][k] - sd[k] for k in ref.deltas}
     numbers = check.train_numbers(primed["losses"], primed["grads"], deltas, ref)
     assert numbers["loss_gap_first"] < 1e-5 and numbers["loss_gap"] < 1e-3
-    assert numbers["grad_gap"] < 1e-3
+    assert numbers["grad_gap"] < grad_tol
