@@ -25,7 +25,7 @@ needs. The encoder's stride-2 stages need H % (n · 2^4) == 0.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Any, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -43,6 +43,7 @@ from v2x_sim_tpu_torch.models.backbone import (
 )
 from v2x_sim_tpu_torch.models.det import fusion as F
 from v2x_sim_tpu_torch.models.det.v2vnet import V2VNetFusion
+from v2x_sim_tpu_torch.models.det.v2xvit import V2XViTFusion
 from v2x_sim_tpu_torch.models.det.when2com import When2comFusion
 from v2x_sim_tpu_torch.parallel.spatial import gather_rows, take_rows
 from v2x_sim_tpu_torch.utils.spans import span, spanned
@@ -62,32 +63,73 @@ MODES = (
     "disco",
 )
 
+#: The port's detection modes: the JAX package's, then V2X-ViT's
+#: transformer fusion (``models/det/v2xvit.py``), which the JAX package
+#: does not have.
+PORT_MODES = MODES + ("v2xvit",)
+
 #: Modes that run no fusion (upperbound's input is already merged).
 NO_FUSION = ("lowerbound", "upperbound")
 
 _FUSE_FNS = {"sum": F.fuse_sum, "mean": F.fuse_mean, "max": F.fuse_max}
 
+#: Each fusion module's settings under a configuration's names, with their
+#: defaults; ``build_fusion`` takes them in ``fusion`` (a configuration's
+#: ``fusion`` block) and hands them on under the constructor's names.
+FUSION_KEYWORDS = {
+    "disco": {"edge_hidden": 32},
+    "cat": {},
+    "agent": {"hidden": 32},
+    "when2com": {},
+    "who2com": {},
+    "v2v": {"rounds": 3, "msg_norm": False},
+    "v2xvit": {"depth": 3, "heads": 8, "dim_head": 32, "num_types": 2,
+               "window_heads": (16, 8, 4), "window_dim_heads": (16, 32, 64),
+               "window_sizes": (4, 8, 16), "relative_pos_embedding": True,
+               "window_fusion": "split_attn", "mlp_dim": 256, "dropout": 0.3, "use_rte": True,
+               "rte_ratio": 2, "use_roi_mask": True},
+}
 
-def check_mode(mode: str) -> None:
-    """Raise ValueError for a mode that is not one of MODES."""
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+
+def check_mode(mode: str, modes: Tuple[str, ...] = PORT_MODES) -> None:
+    """Raise ValueError for a mode that is not one of ``modes`` (the
+    detection model's by default; the segmentation model passes MODES)."""
+    if mode not in modes:
+        if mode in PORT_MODES:
+            raise ValueError(f"mode {mode!r} is detection-only; expected one of {modes}")
+        raise ValueError(f"unknown mode {mode!r}; expected one of {modes}")
 
 
 def build_fusion(mode: str, grid, channels: int, num_agents: int, warp_flag: bool = True,
-                 v2v_rounds: int = 3, v2v_msg_norm: bool = False) -> Optional[nn.Module]:
+                 v2v_rounds: int = 3, v2v_msg_norm: bool = False,
+                 fusion: Optional[Mapping[str, Any]] = None) -> Optional[nn.Module]:
     """The trained fusion module of ``mode`` over ``channels``-wide maps, or
-    None for the modes without one (lowerbound, upperbound, sum, mean, max)."""
+    None for the modes without one (lowerbound, upperbound, sum, mean, max).
+
+    ``fusion``: the module's settings under a configuration's names
+    (``FUSION_KEYWORDS``); a key the mode does not take raises ValueError.
+    ``v2v_rounds`` and ``v2v_msg_norm`` are V2VNet's ``rounds`` and
+    ``msg_norm`` where ``fusion`` does not give them."""
+    fusion = dict(fusion or {})
+    known = FUSION_KEYWORDS.get(mode, {})
+    unknown = sorted(set(fusion) - set(known))
+    if unknown:
+        raise ValueError(f"mode {mode!r} takes no fusion setting {unknown}; "
+                         f"it takes {sorted(known)}")
+    kw = {**known, **({"rounds": v2v_rounds, "msg_norm": v2v_msg_norm} if mode == "v2v" else {}),
+          **fusion}
     if mode == "disco":
-        return F.DiscoFusion(grid, channels)
+        return F.DiscoFusion(grid, channels, hidden=kw["edge_hidden"])
     if mode == "cat":
         return F.CatFusion(grid, channels, num_agents)
     if mode == "agent":
-        return F.AgentWiseWeightedFusion(grid, channels)
+        return F.AgentWiseWeightedFusion(grid, channels, hidden=kw["hidden"])
     if mode in ("when2com", "who2com"):
         return When2comFusion(grid, channels, argmax_mode=mode == "who2com", warp_flag=warp_flag)
     if mode == "v2v":
-        return V2VNetFusion(grid, channels, rounds=v2v_rounds, msg_norm=v2v_msg_norm)
+        return V2VNetFusion(grid, channels, **kw)
+    if mode == "v2xvit":
+        return V2XViTFusion(grid, channels, **kw)
     return None
 
 
@@ -117,6 +159,8 @@ class DetModel(BatchNormGroup, nn.Module):
       warp_flag: when2com/who2com only; warp the neighbors before mixing.
       v2v_rounds, v2v_msg_norm: v2v only; GNN rounds, GroupNorm on the
         averaged message.
+      fusion: the fusion module's settings under a configuration's names
+        (``FUSION_KEYWORDS``), over the named ones above.
       kd: return the fusion-layer map as ``fused_feat``.
       use_vis: the input carries D visibility channels after the D
         occupancy ones (DetModule's ``use_vis``): the encoder's first conv
@@ -133,7 +177,8 @@ class DetModel(BatchNormGroup, nn.Module):
     def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0,
                  fusion_layer: Optional[int] = None, warp_flag: bool = True,
                  v2v_rounds: int = 3, v2v_msg_norm: bool = False, kd: bool = False,
-                 use_vis: bool = False, spatial_group=None):
+                 use_vis: bool = False, spatial_group=None,
+                 fusion: Optional[Mapping[str, Any]] = None):
         super().__init__()
         check_mode(mode)
         self.config = config
@@ -148,7 +193,7 @@ class DetModel(BatchNormGroup, nn.Module):
         self.cls_head = ClassificationHead(chans[0], k, config.num_classes)
         self.reg_head = RegressionHead(chans[0], k, config.anchors.box_code_size)
         self.fusion = build_fusion(mode, config.grid, chans[self.layer], config.num_agents,
-                                   warp_flag, v2v_rounds, v2v_msg_norm)
+                                   warp_flag, v2v_rounds, v2v_msg_norm, fusion=fusion)
         self.spatial_group = spatial_group
         self.set_process_group(None)
 

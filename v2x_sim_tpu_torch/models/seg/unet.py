@@ -40,7 +40,7 @@ from v2x_sim_tpu_torch.models.backbone import (
     unfold_agents,
     upsample_like,
 )
-from v2x_sim_tpu_torch.models.det.net import NO_FUSION, build_fusion, check_mode, fuse_agents
+from v2x_sim_tpu_torch.models.det.net import MODES, NO_FUSION, build_fusion, check_mode, fuse_agents
 from v2x_sim_tpu_torch.parallel import spatial
 
 UNET_CHANNELS: Tuple[int, ...] = (32, 64, 128, 256)
@@ -77,7 +77,7 @@ class SegModel(BatchNormGroup, nn.Module):
     def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0,
                  depth: int = 4, spatial_group=None):
         super().__init__()
-        check_mode(mode)
+        check_mode(mode, MODES)
         if not 1 <= depth <= len(UNET_CHANNELS):
             raise ValueError(f"depth must be in [1, {len(UNET_CHANNELS)}], got {depth}")
         self.config = config

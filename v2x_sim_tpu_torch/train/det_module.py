@@ -124,7 +124,7 @@ class DetModule:
 
     Args:
       config: static geometry/anchor config.
-      mode: collaboration mode (models/det/net.py::MODES).
+      mode: collaboration mode (models/det/net.py::PORT_MODES).
       compute_dtype: activation dtype. With bfloat16, activations run in
         bf16 from the encoder input on, parameters stay float32, and the
         decode and the losses run in float32.
@@ -142,7 +142,8 @@ class DetModule:
         ``load_teacher_flax_variables`` or ``init_teacher_weights``).
       kd_reduce: "mean" divides the KD squared-error sum by its element
         count; "pos" by the positive count, as the detection terms.
-      warp_flag, v2v_rounds, v2v_msg_norm: DetModel's.
+      warp_flag, v2v_rounds, v2v_msg_norm, fusion: DetModel's (``fusion``:
+        the fusion module's settings under a configuration's names).
       use_vis: feed the visibility map as D more input channels
         (DetModel's ``use_vis``); the teacher reads no visibility.
       mgda: train by MGDA over the cls, loc and (with a teacher) KD losses
@@ -171,6 +172,7 @@ class DetModule:
         mgda: bool = False,
         process_group=None,
         spatial_group=None,
+        fusion: Optional[Mapping[str, Any]] = None,
     ):
         check_mode(mode)
         if kd_reduce not in ("mean", "pos"):
@@ -189,7 +191,7 @@ class DetModule:
         self.model = DetModel(
             config, mode, width_mult, warp_flag=warp_flag, v2v_rounds=v2v_rounds,
             v2v_msg_norm=v2v_msg_norm, kd=kd_weight > 0.0, use_vis=use_vis,
-            spatial_group=spatial_group,
+            spatial_group=spatial_group, fusion=fusion,
         ).to(self.device, memory_format=torch.channels_last)
         self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
         self.spatial_group = spatial_group

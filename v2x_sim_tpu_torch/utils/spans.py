@@ -15,9 +15,12 @@ Every span of the port is named ``det.<...>``. The entries of
 ``train/det_module.py::DetModule`` open ``det.predict``,
 ``det.prepare_batch`` and ``det.train_step``, and the modules that own
 the work open the stages inside them (``models/det/net.py``,
-``models/det/v2vnet.py``, ``ops/assign.py``, ``ops/nms.py``). A span never
-sits inside a per-element or per-iteration loop, such as NMS's greedy
-loop; V2VNet's round (3 a call) is the one exception.
+``models/det/v2vnet.py``, ``models/det/v2xvit.py``, ``ops/assign.py``,
+``ops/nms.py``). A span never sits inside a per-element or per-iteration
+loop, such as NMS's greedy loop. There are two exceptions, loops of a
+few heavy iterations: V2VNet's round (``det.fuse.round``, 3 a call) and
+V2X-ViT's layer (``det.fuse.hmsa``, ``det.fuse.mswin`` and
+``det.fuse.ffn``, one each a layer, 3 a call; ``det.fuse.sttf`` once).
 """
 
 from __future__ import annotations
