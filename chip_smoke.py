@@ -195,6 +195,19 @@ Phases, each reported on its own line; any failure exits non-zero:
      version, and the Function's forward and backward beside the unfused
      PyTorch layer's (relu(_bn(...)) under autograd), the yardstick;
      totals over the step's 18 layers.
+ 18. The decoder's fused stage input of bf16 maps (csrc/upsample.cu
+     through ops/cuda/upsample_cu.py): a bf16 disco train step at B
+     launches each entry 4 times and a bf16 predict the forward 4 times,
+     each counted from zero (the counts the kernels line reports); then
+     at a B=16 call's four stage inputs
+     (96 maps: C 512 at 16^2, 256 at 32^2, 128 at 64^2, 64 at 128^2, each
+     with its skip of C/2 channels at twice the size), on random maps,
+     each entry against its plain version bit for bit, the forward also
+     against the upsample and cat it replaces, the backward twice, the
+     same bits; each timed beside its byte bound (9 and 5 bf16 elements
+     an element of x) and the plain version, and the Function's forward
+     and backward beside the two ops' under autograd, the yardstick;
+     totals over the four stages.
 
 Each kernel timing line gives the share of pairs that pass the kernel's
 cull, the share of 32-pair groups with any pair that passes, and the
@@ -445,7 +458,7 @@ def phase_build() -> None:
     from v2x_sim_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    built = build.build(["rotated_iou", "batchnorm"])
+    built = build.build(["rotated_iou", "batchnorm", "upsample"])
     for name, b in built.items():
         report = [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
         log(f"[1] built {name} -> {os.path.relpath(b.path, ROOT)} in "
@@ -3255,7 +3268,8 @@ def _dist(u, v):
 #: bilinear interpolate; "F4 only" swaps in flax's BatchNorm (both as
 #: PyTorch operators, before the fused BatchNorm of phase 17); "final" is
 #: the port as it stands (also the bias after the conv's rounding and the
-#: upsample's rows rounded before its columns).
+#: upsample's rows rounded before its columns, as phase 18's fused stage
+#: input).
 BF16_FORMS = ("earlier", "F4 only", "final")
 
 
@@ -3270,7 +3284,9 @@ def _swap_bf16_forms(form: str):
 
     saved = [(m, n, getattr(m, n)) for m, n in ((backbone, "_bn"), (backbone, "bn_relu"),
                                                 (backbone, "_conv"),
-                                                (backbone, "upsample_bilinear"), (unet, "_conv"))]
+                                                (backbone, "upsample_bilinear"), (unet, "_conv"),
+                                                (backbone, "upsample_cat"),
+                                                (unet, "upsample_cat"))]
     port_bn = backbone._bn
 
     def folded_bn(x, bn, train=False, group=None):
@@ -3296,10 +3312,14 @@ def _swap_bf16_forms(form: str):
     def unfused_bn_relu(x, bn, train=False, group=None):  # before the fused bf16 BatchNorm
         return torch.relu(backbone._bn(x, bn, train, group))
 
+    def unfused_upsample_cat(x, skip, group=None):  # before the fused stage input
+        return torch.cat([backbone.upsample_like(x, skip, group), skip.to(x.dtype)], dim=1)
+
     if form != "final":
         backbone.bn_relu = unfused_bn_relu
         backbone._conv = unet._conv = fused_conv
-        backbone.upsample_bilinear = one_interpolate  # the seg decoder's too (upsample_like)
+        backbone.upsample_bilinear = one_interpolate
+        backbone.upsample_cat = unet.upsample_cat = unfused_upsample_cat
     if form == "earlier":
         backbone._bn = folded_bn
 
@@ -3862,6 +3882,130 @@ def phase_batchnorm(device, cfg, variables, batch, card: str) -> dict:
     return {"passes": total, "layer": layer, "launches": {p: 18 for p in passes}}
 
 
+def _upsample_stages(cfg, batch: int) -> list:
+    """(N, C, h, w, Cs) of the decoder's four stage inputs at ``batch``
+    scenes: x the deeper stage's map, its skip Cs channels at twice h, w."""
+    from v2x_sim_tpu_torch.models.backbone import STAGE_CHANNELS
+
+    n, size = batch * cfg.num_agents, cfg.grid.grid_shape[0]
+    deep = len(STAGE_CHANNELS) - 1
+    return [(n, STAGE_CHANNELS[s], size >> s, size >> s, STAGE_CHANNELS[s - 1])
+            for s in range(deep, 0, -1)]
+
+
+def _upsample_main_path(device, cfg, variables, batch, card: str) -> dict:
+    """Phase 18's launch counts on the main path: one bf16 disco train step
+    at B (4 of each entry, one a decoder stage) and one bf16 predict (4
+    forward), each counted from zero and synchronized. Returns the step's
+    counts and the predict's forward count."""
+    import torch
+
+    from v2x_sim_tpu_torch.ops.cuda import upsample_cu
+    from v2x_sim_tpu_torch.train.det_module import DetModule
+
+    module = DetModule(cfg, "disco", torch.bfloat16, device=device)
+    module.load_flax_variables(variables)
+    prepared = module.prepare_batch(batch)
+    upsample_cu.reset_launches()
+    metrics = module.train_step(prepared)
+    torch.cuda.synchronize()
+    step = upsample_cu.launches()
+    if step != {"forward": 4, "backward": 4}:
+        raise AssertionError(f"a bf16 train step launched {step}, not 4 of each entry")
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError("non-finite bf16 training loss")
+    upsample_cu.reset_launches()
+    module.predict({k: batch[k] for k in ("points", "point_mask", "trans", "agent_mask")},
+                   MAX_BOXES, NMS_IOU, SCORE_THRESHOLD)
+    torch.cuda.synchronize()
+    predict = upsample_cu.launches()
+    if predict != {"forward": 4, "backward": 0}:
+        raise AssertionError(f"a bf16 predict launched {predict}, not 4 forward")
+    log(f"[18] a bf16 disco train step at B={batch['points'].shape[0]} launched {step}, a bf16 "
+        f"predict {predict} (each from zero, synchronized) [{card}]")
+    del module, prepared, metrics
+    torch.cuda.empty_cache()
+    return {"forward": step["forward"] + predict["forward"], "backward": step["backward"]}
+
+
+def phase_upsample(device, cfg, variables, batch, card: str) -> dict:
+    """Phase 18: the fused upsample and concatenation's launches on the
+    main path, then at a B=16 call's stage inputs, held to its plain
+    versions and timed beside its byte bounds and the two ops. Returns
+    each entry's totals and its main-path launches for the record."""
+    import torch
+
+    from v2x_sim_tpu_torch.models.backbone import upsample_bilinear
+    from v2x_sim_tpu_torch.ops.cuda import upsample_cu
+
+    launches = _upsample_main_path(device, cfg, variables, batch, card)
+    entries = tuple(upsample_cu.PASS_ELEMENTS)
+    total = {e: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for e in entries}
+    layer = {"fused_fwd": 0.0, "fused_bwd": 0.0, "ops_fwd": 0.0, "ops_bwd": 0.0}
+    for n, c, h, w, cs in _upsample_stages(cfg, BATCH):
+        gen = torch.Generator(device=device).manual_seed(c)
+        x = torch.randn(n, h, w, c, device=device, generator=gen).to(torch.bfloat16)
+        skip = torch.randn(n, 2 * h, 2 * w, cs, device=device, generator=gen).to(torch.bfloat16)
+        dy = torch.randn(n, 2 * h, 2 * w, c + cs, device=device, generator=gen).to(torch.bfloat16)
+        x, skip, dy = (t.permute(0, 3, 1, 2) for t in (x, skip, dy))
+
+        out = upsample_cu.forward(x, skip)
+        plain = upsample_cu.forward_plain(x, skip)
+        same_plain = torch.equal(out.contiguous().view(torch.int16),
+                                 plain.contiguous().view(torch.int16))
+        same_ops = torch.equal(out, torch.cat([upsample_bilinear(x, (2 * h, 2 * w)), skip], 1))
+        dx, again = upsample_cu.backward(dy, c), upsample_cu.backward(dy, c)
+        same_dx = torch.equal(dx, upsample_cu.backward_plain(dy, c))
+        same_runs = torch.equal(dx.view(torch.int16), again.view(torch.int16))
+        if not (same_plain and same_ops and same_dx and same_runs):
+            raise AssertionError(f"upsample at {(n, c, h, w, cs)}: forward equal to plain "
+                                 f"{same_plain}, to upsample + cat {same_ops}; backward equal "
+                                 f"to plain {same_dx}, run to run {same_runs}")
+        del out, plain, dx, again
+        calls = {
+            "forward": (lambda: upsample_cu.forward(x, skip),
+                        lambda: upsample_cu.forward_plain(x, skip)),
+            "backward": (lambda: upsample_cu.backward(dy, c),
+                         lambda: upsample_cu.backward_plain(dy, c)),
+        }
+        row = []
+        for e, (kernel, plain) in calls.items():
+            ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 3, warmup=1)
+            bound_ms = 2 * upsample_cu.PASS_ELEMENTS[e] * x.numel() / PEAK_HBM_BYTES * 1e3
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                total[e][key] += v
+            row.append(f"{e} {ms:.4f} ms (bound {bound_ms:.4f}, {100 * bound_ms / ms:.1f}%; "
+                       f"plain {plain_ms:.3f})")
+
+        # The whole stage input under autograd: the Function, and the
+        # upsample and cat it replaces.
+        xg, sg = x.clone().requires_grad_(True), skip.clone().requires_grad_(True)
+        forms = {
+            "fused": lambda: upsample_cu.UpsampleCat.apply(xg, sg),
+            "ops": lambda: torch.cat([upsample_bilinear(xg, (2 * h, 2 * w)), sg], 1),
+        }
+        times = {}
+        for form, fwd in forms.items():
+            times[f"{form}_fwd"] = time_ms(fwd, 10)
+            out = fwd()
+            times[f"{form}_bwd"] = time_ms(lambda: torch.autograd.grad(
+                out, (xg, sg), dy, retain_graph=True), 10)
+            del out
+        for key, v in times.items():
+            layer[key] += v
+        log(f"[18] ({n}, {c}, {h}, {w}) + skip {cs}: {'; '.join(row)}; the stage input fused "
+            f"fwd {times['fused_fwd']:.3f} / bwd {times['fused_bwd']:.3f} ms, upsample + cat "
+            f"fwd {times['ops_fwd']:.3f} / bwd {times['ops_bwd']:.3f} ms [{card}]")
+        del x, skip, dy, xg, sg
+        torch.cuda.empty_cache()
+    log(f"[18] the four stage inputs: "
+        + ", ".join(f"{e} {t['ms']:.4f} ms against the byte bound {t['bound_ms']:.4f} "
+                    f"({100 * t['bound_ms'] / t['ms']:.1f}%)" for e, t in total.items())
+        + f"; the Function fwd {layer['fused_fwd']:.3f} + bwd {layer['fused_bwd']:.3f} ms, "
+        f"upsample + cat fwd {layer['ops_fwd']:.3f} + bwd {layer['ops_bwd']:.3f} ms [{card}]")
+    return {"entries": total, "layer": layer, "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     parser.add_argument("--baseline", type=Path, help="another version of csrc/rotated_iou.cu "
@@ -3938,6 +4082,7 @@ def main() -> int:
                 train["batch"], card, train_rates)["launches"]
     timed("bench, entry, dry run", phase_bench_entry, card, predict_rates, train_rates)
     bn = timed("batchnorm", phase_batchnorm, device, cfg, variables, train["batch"], card)
+    up = timed("upsample", phase_upsample, device, cfg, variables, train["batch"], card)
     log(f"[time] all phases: {time.perf_counter() - t_run:.1f} s")
 
     source = "v2x_sim_tpu_torch/csrc/rotated_iou.cu"
@@ -4017,6 +4162,22 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     } for name, t in bn["passes"].items()]
+    # The fused upsample and concatenation: totals over a call's four
+    # decoder stages (phase 18); launches of phase 18's bf16 train step and
+    # predict (4 + 4 forward, 4 backward).
+    kernels += [{
+        "name": f"upsample_cat_{name}",
+        "route": "cuda",
+        "source": "v2x_sim_tpu_torch/csrc/upsample.cu",
+        "replaces": None,
+        "launches": up["launches"][name],
+        "max_abs_err": 0.0,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": up["layer"]["ops_fwd" if name == "forward" else "ops_bwd"],
+    } for name, t in up["entries"].items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ the CUDA kernel against the plain PyTorch version (the forced-anchor
 entry's CPU cases are in tests/test_torch_forced_anchor.py). On the card
 too: the fused BatchNorm + ReLU passes (ops/cuda/bn_cu.py; their CPU cases
 are in tests/test_torch_batchnorm.py) against their plain versions at
-the widths and resolutions of a B=16 DiscoNet training step.
+the widths and resolutions of a B=16 DiscoNet training step, and the
+decoder's fused upsample and concatenation (ops/cuda/upsample_cu.py; CPU
+cases in tests/test_torch_upsample.py) at that step's four stage inputs.
 
 This file imports neither JAX nor tests/conftest.py's setup, so it runs
 on the card's machine, which has no JAX:
@@ -499,3 +501,101 @@ def test_batchnorm_launches_of_a_bf16_train_step(cuda_device):
     torch.cuda.synchronize()
     assert bn_cu.launches() == {name: 18 for name in ("moments", "normalize_relu",
                                                       "backward_reduce", "backward_dx")}
+
+
+#: The decoder's stage inputs of a B=16 DiscoNet call (16 scenes x 6
+#: agents): (N, C, h, w) of x and the skip's Cs; then odd small shapes.
+UPSAMPLE_SHAPES = ((96, 512, 16, 16, 256), (96, 256, 32, 32, 128), (96, 128, 64, 64, 64),
+                   (96, 64, 128, 128, 32), (3, 8, 1, 1, 8), (2, 16, 5, 7, 24), (1, 24, 3, 2, 8))
+
+
+def _upsample_operands(shape, device, seed):
+    """x, its skip and the concatenation's cotangent: channels-last bf16,
+    magnitudes over six decades in x."""
+    n, c, h, w, cs = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, h, w, c, device=device, generator=gen)
+    x = x * torch.pow(10.0, torch.rand(n, h, w, c, device=device, generator=gen) * 6 - 3)
+    skip = torch.randn(n, 2 * h, 2 * w, cs, device=device, generator=gen)
+    dy = torch.randn(n, 2 * h, 2 * w, c + cs, device=device, generator=gen)
+    return tuple(t.to(torch.bfloat16).permute(0, 3, 1, 2) for t in (x, skip, dy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_upsample_kernels_match_plain_on_card(cuda_device, shape):
+    """Both entries of csrc/upsample.cu against their plain versions bit
+    for bit, the forward also against the upsample and cat it replaces;
+    the backward twice, the same bits; one launch a call."""
+    from v2x_sim_tpu_torch.models.backbone import upsample_bilinear
+    from v2x_sim_tpu_torch.ops.cuda import upsample_cu
+
+    x, skip, dy = _upsample_operands(shape, cuda_device, seed=shape[1] + shape[2])
+    c, h, w = x.shape[1:]
+    before = upsample_cu.launches()
+    out = upsample_cu.forward(x, skip)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    bits = out.contiguous().view(torch.int16)
+    assert torch.equal(bits, upsample_cu.forward_plain(x, skip).contiguous().view(torch.int16))
+    today = torch.cat([upsample_bilinear(x, (2 * h, 2 * w)), skip], dim=1)
+    assert torch.equal(out, today)  # values: -0 and +0 agree
+    dx = upsample_cu.backward(dy, c)
+    again = upsample_cu.backward(dy, c)
+    torch.cuda.synchronize()
+    assert torch.equal(dx.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(dx, upsample_cu.backward_plain(dy, c))
+    assert upsample_cu.launches() == {"forward": before["forward"] + 1,
+                                      "backward": before["backward"] + 2}
+
+
+@pytest.mark.gpu
+def test_upsample_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    from v2x_sim_tpu_torch.ops.cuda import upsample_cu
+
+    x, skip, dy = _upsample_operands((2, 16, 4, 4, 8), cuda_device, seed=1)
+    with pytest.raises(TypeError):
+        upsample_cu.forward(x.float(), skip)  # float32
+    with pytest.raises(ValueError):
+        upsample_cu.forward(x.contiguous(), skip)  # NCHW memory
+    with pytest.raises(ValueError):
+        upsample_cu.forward(x[:, :12].contiguous(memory_format=torch.channels_last), skip)
+    with pytest.raises(ValueError):
+        upsample_cu.forward(x, skip[:, :, :7])  # not twice x's size
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    shifted = flat[1:].view(2, 4, 4, 16).permute(0, 3, 1, 2)  # 2 bytes past alignment
+    with pytest.raises(ValueError):
+        upsample_cu.forward(shifted, skip)
+    with pytest.raises(ValueError):
+        upsample_cu.backward(dy, 12)  # c not a multiple of 8
+    with pytest.raises(ValueError):
+        upsample_cu.backward(dy, 24)  # no skip channels left
+    with pytest.raises(TypeError):
+        upsample_cu.UpsampleCat.apply(x.float(), skip.float())
+
+
+@pytest.mark.gpu
+def test_upsample_launches_of_a_bf16_train_step(cuda_device):
+    """A bf16 DiscoNet forward launches the forward entry 4 times (one a
+    decoder stage), in inference and in training, and its backward the
+    backward entry 4 times; float32 none."""
+    from v2x_sim_tpu_torch.configs.config import Config, GridConfig
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+    from v2x_sim_tpu_torch.ops.cuda import upsample_cu
+
+    cfg = Config(grid=GridConfig(voxel_size=(1.0, 1.0, 0.625)))
+    model = DetModel(cfg, "disco").to(cuda_device, memory_format=torch.channels_last)
+    h, w, d = cfg.grid.grid_shape
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    occ = (torch.rand(2, cfg.num_agents, h, w, d, device=cuda_device, generator=gen) < 0.05)
+    trans = torch.eye(4, device=cuda_device).expand(2, cfg.num_agents, cfg.num_agents, 4, 4)
+    mask = torch.ones(2, cfg.num_agents, dtype=torch.bool, device=cuda_device)
+    upsample_cu.reset_launches()
+    with torch.no_grad():
+        model(occ.float(), trans.contiguous(), mask)
+        model(occ.to(torch.bfloat16), trans.contiguous(), mask)
+    torch.cuda.synchronize()
+    assert upsample_cu.launches() == {"forward": 4, "backward": 0}
+    out = model(occ.to(torch.bfloat16), trans.contiguous(), mask, train=True)
+    out.cls_logits.float().sum().backward()
+    torch.cuda.synchronize()
+    assert upsample_cu.launches() == {"forward": 8, "backward": 4}

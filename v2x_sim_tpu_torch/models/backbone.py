@@ -18,7 +18,11 @@ round where flax and XLA round: a conv adds its bias after the conv's
 own rounding (:func:`_conv`), and the bilinear upsample resizes rows,
 rounds, then resizes columns (:func:`upsample_bilinear`). Without them
 the bf16 train step's loss terms stand farther from JAX's float32 than
-1.25 x JAX's own bf16 error (``tests/test_torch_bf16_step.py``).
+1.25 x JAX's own bf16 error (``tests/test_torch_bf16_step.py``). A bf16
+decoder stage's input, that upsample concatenated with its skip map,
+runs as one autograd Function (:func:`upsample_cat`,
+``ops/cuda/upsample_cu.py``) with the same two roundings, its gradient
+rounded once a pass.
 
 ``train=True`` runs BatchNorm as flax does in training: batch statistics
 in float32 (float64 for float64 maps) over every folded map, padded
@@ -55,7 +59,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from v2x_sim_tpu_torch.ops.cuda import bn_cu
+from v2x_sim_tpu_torch.ops.cuda import bn_cu, upsample_cu
 from v2x_sim_tpu_torch.parallel import spatial
 from v2x_sim_tpu_torch.parallel.mesh import group_size, psum
 
@@ -112,6 +116,22 @@ def upsample_like(x: torch.Tensor, skip: torch.Tensor, group=None) -> torch.Tens
         raise ValueError(f"a sharded upsample doubles the shard: {tuple(x.shape)} -> "
                          f"{tuple(skip.shape)}")
     return spatial.upsample_bilinear_halo(x, group)
+
+
+def upsample_cat(x: torch.Tensor, skip: torch.Tensor, group=None) -> torch.Tensor:
+    """A decoder stage's input, ``cat([upsample_like(x, skip, group), skip])``
+    along channels. A bf16 ``x`` on whole maps (no ``group``) whose
+    ``skip`` is exactly twice its size, both with channels a multiple of 8,
+    takes the fused Function (``upsample_cu.UpsampleCat``): the kernels
+    for CUDA maps, their plain version for CPU ones, the same numbers
+    forward, its gradient rounded once a pass. Everything else (float32,
+    float64, row shards, sizes that do not double) runs the two ops."""
+    skip = skip.to(x.dtype)
+    c, h, w = x.shape[1:]
+    if (group is None and x.dtype == torch.bfloat16 and c % upsample_cu.VEC == 0
+            and skip.shape[1] % upsample_cu.VEC == 0 and tuple(skip.shape[-2:]) == (2 * h, 2 * w)):
+        return upsample_cu.UpsampleCat.apply(x, skip)
+    return torch.cat([upsample_like(x, skip, group), skip], dim=1)
 
 
 def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) -> torch.Tensor:
@@ -235,8 +255,9 @@ class STPNDecoder(nn.Module):
     """Decoder with skip connections back to stage-0 resolution.
 
     Each stage upsamples bilinearly (:func:`upsample_bilinear`) and convolves
-    ``cat([up, skip])``: the JAX package's ``_SplitConv`` is one
-    (3, 3, Ca+Cb, Cout) kernel whose first Ca inputs see the upsampled map.
+    ``cat([up, skip])`` (:func:`upsample_cat`): the JAX package's
+    ``_SplitConv`` is one (3, 3, Ca+Cb, Cout) kernel whose first Ca inputs
+    see the upsampled map.
     """
 
     def __init__(self, channels: Sequence[int] = STAGE_CHANNELS):
@@ -253,9 +274,7 @@ class STPNDecoder(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor], train: bool = False) -> torch.Tensor:
         x = feats[-1]
         for i, block in enumerate(self.blocks):
-            skip = feats[-2 - i]
-            x = upsample_like(x, skip, self.spatial_group)
-            x = block(torch.cat([x, skip.to(x.dtype)], dim=1), train)
+            x = block(upsample_cat(x, feats[-2 - i], self.spatial_group), train)
         return x
 
 

@@ -38,7 +38,7 @@ from v2x_sim_tpu_torch.models.backbone import (
     _conv,
     fold_agents,
     unfold_agents,
-    upsample_like,
+    upsample_cat,
 )
 from v2x_sim_tpu_torch.models.det.net import MODES, NO_FUSION, build_fusion, check_mode, fuse_agents
 from v2x_sim_tpu_torch.parallel import spatial
@@ -139,8 +139,7 @@ class SegModel(BatchNormGroup, nn.Module):
                train: bool = False) -> SegOutput:
         """Up stages over the skips, deepest first, then the 1x1 head."""
         for up, skip in zip(self.ups, reversed(skips)):
-            x = upsample_like(x, skip, self.spatial_group)
-            x = up(torch.cat([x, skip.to(x.dtype)], dim=1), train)
+            x = up(upsample_cat(x, skip, self.spatial_group), train)
         logits = _conv(x, self.head).permute(0, 2, 3, 1).float()
         return SegOutput(unfold_agents(logits, num_agents))
 
