@@ -52,7 +52,7 @@ from v2x_sim_tpu.models.det.net import DetModel as JaxDetModel
 from v2x_sim_tpu_torch.bridge import state_dict_from_flax
 from v2x_sim_tpu_torch.models.backbone import _bn, _conv, upsample_bilinear
 from v2x_sim_tpu_torch.models.det.net import DetModel
-from tests.test_torch_model import CFG, JCFG, MODE_KW, _flax_variables, _inputs
+from tests.test_torch_model import CFG, FUSION, JCFG, _flax_variables, _inputs, _jax_kw
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 #: Rule 1's factor on JAX's own bf16 distance from float32.
@@ -87,7 +87,7 @@ def hold_bf16(name, port_bf, jax_f32, own, jax_bf=None, apart=(0.0, 0.0)):
 
 
 def _jax_forward(mode, variables, occ, trans, mask, dtype, s2d, train):
-    model = JaxDetModel(config=JCFG, mode=mode, s2d=s2d, dtype=dtype, **MODE_KW.get(mode, {}))
+    model = JaxDetModel(config=JCFG, mode=mode, s2d=s2d, dtype=dtype, **_jax_kw(FUSION.get(mode)))
     args = (jnp.asarray(occ, dtype or jnp.float32), jnp.asarray(trans), jnp.asarray(mask))
     if train:
         out, _ = model.apply(variables, *args, train=True, mutable=["batch_stats"])
@@ -103,7 +103,7 @@ def test_bf16_forward_within_jax_bf16_error(mode, train):
     occ, trans, mask = _inputs(seed=1)
     jax_out = {(dt, s2d): _jax_forward(mode, variables, occ, trans, mask, dt, s2d, train)
                for dt in (None, jnp.bfloat16) for s2d in (False, True)}
-    model = DetModel(CFG, mode, **MODE_KW.get(mode, {}))
+    model = DetModel(CFG, mode, fusion=FUSION.get(mode))
     model.load_state_dict(state_dict_from_flax(variables, mode), strict=True)
     with torch.no_grad():
         out = model(torch.from_numpy(occ).to(torch.bfloat16), torch.from_numpy(trans),

@@ -150,7 +150,7 @@ def test_truncated_normal_draws_like_flax():
 
 
 @pytest.mark.parametrize("mode, opts", [
-    ("disco", {}), ("when2com", {}), ("v2v", {"v2v_msg_norm": True}),
+    ("disco", {}), ("when2com", {}), ("v2v", {"fusion": {"msg_norm": True}}),
 ], ids=["disco", "when2com", "v2v-groupnorm"])
 def test_init_weights_draws_flax_defaults(mode, opts):
     module = DetModule(Config(), mode, device="cpu", **opts)  # full widths: 32..512

@@ -4,8 +4,7 @@ module's settings under a configuration's names, handed to
 a model built with the keyword at its defaults has the state-dict keys
 and shapes of one built without it, and the listed defaults are the
 constructor's own; a setting away from its default
-reaches the module; a key the mode does not take raises; and the named
-``v2v_rounds`` and ``v2v_msg_norm`` keep working."""
+reaches the module; and a key the mode does not take raises."""
 
 import inspect
 
@@ -14,7 +13,6 @@ import torch
 
 from v2x_sim_tpu_torch.configs.config import Config
 from v2x_sim_tpu_torch.models.det.net import FUSION_KEYWORDS, NO_FUSION, PORT_MODES, DetModel
-from v2x_sim_tpu_torch.train.det_module import DetModule
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 CFG = Config()
@@ -58,6 +56,7 @@ def test_the_listed_defaults_are_the_constructors(mode):
     ("agent", {"hidden": 8}, "score_hidden.out_features", 8),
     ("v2v", {"rounds": 2}, "rounds", 2),
     ("v2v", {"msg_norm": True}, "msg_norm.num_channels", 64),
+    ("when2com", {"warp_flag": False}, "warp_flag", False),
     ("v2xvit", {"depth": 2}, "layers.__len__", 2),
     ("v2xvit", {"window_sizes": [2, 4, 8]}, "layers.0.mswin.windows.2.window", 8),
 ])
@@ -79,10 +78,3 @@ def test_a_setting_reaches_the_module(mode, fusion, path, want):
 def test_an_unknown_key_raises(mode, fusion):
     with pytest.raises(ValueError, match="takes no fusion setting"):
         _model(mode, fusion=fusion)
-
-
-def test_the_named_v2v_settings_still_work():
-    m = DetModule(CFG, "v2v", device="cpu", width_mult=WIDTH, v2v_rounds=2, v2v_msg_norm=True)
-    assert m.model.fusion.rounds == 2 and m.model.fusion.msg_norm is not None
-    # The keyword wins over the named setting.
-    assert _model("v2v", v2v_rounds=2, fusion={"rounds": 4}).fusion.rounds == 4

@@ -36,8 +36,14 @@ VOXEL = (1.0, 1.0, 0.625)  # 64x64x8
 CFG = Config(grid=GridConfig(voxel_size=VOXEL))
 JCFG = JaxConfig(grid=JaxGrid(voxel_size=VOXEL))
 ATOL = 2e-4
-#: Per-mode model options, the same in both packages.
-MODE_KW = {"v2v": {"v2v_msg_norm": True}}
+#: Per-mode fusion settings (the port's ``fusion``), the same in both
+#: packages: JAX's DetModel takes them as ``v2v_<name>``.
+FUSION = {"v2v": {"msg_norm": True}}
+
+
+def _jax_kw(fusion):
+    """JAX's DetModel options for the port's ``fusion`` settings."""
+    return {f"v2v_{k}": v for k, v in (fusion or {}).items()}
 
 
 def _inputs(seed=0, b=1):
@@ -86,7 +92,7 @@ def _perturb(variables, seed):
 def _init_variables(mode, seed, fusion_layer):
     occ, trans, mask = _inputs()
     init = JaxDetModel(config=JCFG, mode=mode, s2d=False, fusion_layer=fusion_layer,
-                       **MODE_KW.get(mode, {})).init(
+                       **_jax_kw(FUSION.get(mode))).init(
         jax.random.PRNGKey(seed), jnp.asarray(occ), jnp.asarray(trans), jnp.asarray(mask),
         train=False)
     return _perturb({"params": init["params"], "batch_stats": init["batch_stats"]}, seed)
@@ -102,7 +108,7 @@ def _flax_variables(mode, seed=0, fusion_layer=None):
 @pytest.mark.parametrize("mode", MODES)
 def test_bridge_round_trips_through_torch_convert(mode):
     variables = _flax_variables(mode)
-    model = DetModel(CFG, mode, **MODE_KW.get(mode, {}))
+    model = DetModel(CFG, mode, fusion=FUSION.get(mode))
     model.load_state_dict(state_dict_from_flax(variables, mode), strict=True)
     # The port's table extends the JAX package's (which names disco's fusion only).
     assert jax_key_map(mode).items() <= key_map(mode).items()
@@ -129,10 +135,10 @@ def test_bridge_rejects_unconsumed_leaves_and_random_tree_loads():
 def test_eval_logits_match_jax(mode, s2d):
     variables = _flax_variables(mode)
     occ, trans, mask = _inputs(seed=1)
-    want = JaxDetModel(config=JCFG, mode=mode, s2d=s2d, **MODE_KW.get(mode, {})).apply(
+    want = JaxDetModel(config=JCFG, mode=mode, s2d=s2d, **_jax_kw(FUSION.get(mode))).apply(
         variables, jnp.asarray(occ), jnp.asarray(trans), jnp.asarray(mask), train=False)
 
-    model = DetModel(CFG, mode, **MODE_KW.get(mode, {})).eval()
+    model = DetModel(CFG, mode, fusion=FUSION.get(mode)).eval()
     model.load_state_dict(state_dict_from_flax(variables, mode), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(occ), torch.from_numpy(trans), torch.from_numpy(mask))

@@ -128,7 +128,7 @@ def test_recording_flag_follows_the_profiler():
 
 @pytest.mark.parametrize("mode", ["disco", "v2v"])
 def test_predict_span_tree(mode):
-    m = _module(mode, v2v_rounds=ROUNDS)
+    m = _module(mode, fusion={"rounds": ROUNDS} if mode == "v2v" else None)
     batch = _batch(m)
     with _cpu_profile() as prof:
         m.predict(batch, 16)

@@ -59,7 +59,7 @@ WIDTH = 0.25
 SEG_DEPTH = 4  # JAX's default: a 4x4 bottleneck at 64 rows, 1 row a shard on 4 ranks
 #: The other fusion families, held at 2 ranks in float64 against the port.
 FAMILIES = ("sum", "mean", "max", "cat", "agent", "when2com", "v2v")
-MODE_KW = {"v2v": {"v2v_msg_norm": True}}
+MODE_KW = {"v2v": {"fusion": {"msg_norm": True}}}
 
 
 def _scene(seed):

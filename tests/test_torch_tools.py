@@ -23,6 +23,9 @@ test_det}.py``) on the CPU at the 64x64x8 grid and width_mult 0.25.
     the JAX tool prints over JAX's dumps.
   * Without a card every tool that uses a device (the det tools,
     ``train_seg`` and ``test_seg``) raises unless given ``--cpu``.
+  * The fusion flags (``--warp_flag``, ``--v2v_rounds``,
+    ``--v2v_msg_norm``) become ``DetModule``'s ``fusion`` with only the
+    settings the mode takes.
 
 ``config.max_boxes`` is cut to 64 candidates for the tool runs: the plain
 IoU matrix of NMS and late fusion over 512 candidates a agent takes tens
@@ -56,6 +59,7 @@ from v2x_sim_tpu_torch.datasets.cache import NpzCacheDataset, save_frame
 from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec, generate_sequence
 from v2x_sim_tpu_torch.ops.visibility import visibility_batch
 from v2x_sim_tpu_torch.tools import (
+    bench_table,
     common,
     create_data_det,
     test_det,
@@ -192,6 +196,24 @@ def test_tools_raise_without_a_card(tool, argv, vis, monkeypatch, tmp_path, caps
         with pytest.raises(SystemExit):
             tool.main(argv + ["--use_vis", "1"])
         assert "the segmenter takes no visibility input" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode, want", [
+    ("disco", {}),
+    ("v2v", {"rounds": 2, "msg_norm": True}),
+    ("when2com", {"warp_flag": False}),
+    ("who2com", {"warp_flag": False}),
+])
+def test_fusion_settings_from_flags(mode, want):
+    flags = ["--warp_flag", "0", "--v2v_rounds", "2", "--v2v_msg_norm", "1"]
+    got = common.fusion_settings(bench_table.parse_args(flags), mode)
+    assert got == want and all(type(got[k]) is type(v) for k, v in want.items())
+    # The det tools have --warp_flag alone: v2v keeps its defaults.
+    det_args = train_det.parse_args(["--warp_flag", "0"])
+    assert common.fusion_settings(det_args, mode) == {k: v for k, v in want.items()
+                                                      if k == "warp_flag"}
+    with torch.device("meta"):  # build_fusion takes every key it gives
+        DetModel(common.build_config(det_args), mode, 0.25, fusion=got)
 
 
 def test_slice_map_matches_jax():

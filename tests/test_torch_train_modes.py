@@ -43,11 +43,12 @@ from tests.test_torch_train import (  # noqa: F401  (raw is a fixture)
     _leaves,
     raw,
 )
+from tests.test_torch_model import _jax_kw
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 #: (mode, DetModule options) of the float64 one-step cases beyond disco.
 MODE_CASES = {
-    "v2v_msg_norm": ("v2v", {"v2v_msg_norm": True}),
+    "v2v_msg_norm": ("v2v", {"fusion": {"msg_norm": True}}),
     "when2com": ("when2com", {}),
     "cat": ("cat", {}),
     "max": ("max", {}),
@@ -59,14 +60,16 @@ MODE_CASES = {
 @pytest.mark.parametrize("case", list(MODE_CASES))
 def test_mode_step_loss_and_grads_match_jax(case, raw):
     mode, opts = MODE_CASES[case]
-    model_opts = {k: v for k, v in opts.items() if k.startswith("v2v")}
+    fusion = opts.get("fusion", {})
+    jax_model_opts = _jax_kw(fusion)
+    jax_opts = {**{k: v for k, v in opts.items() if k != "fusion"}, **jax_model_opts}
     kd = opts.get("kd_weight", 0.0) > 0.0
-    variables = random_flax_variables(DetModel(CFG, mode, WIDTH_F64, **model_opts), seed=3)
+    variables = random_flax_variables(DetModel(CFG, mode, WIDTH_F64, fusion=fusion), seed=3)
     teacher = random_flax_variables(DetModel(CFG, "upperbound", WIDTH_F64), seed=4) if kd else None
     with jax.enable_x64(True):
-        jmod = JaxDetModule(JCFG, mode=mode, compute_dtype=jnp.float64, width_mult=WIDTH_F64, **opts)
+        jmod = JaxDetModule(JCFG, mode=mode, compute_dtype=jnp.float64, width_mult=WIDTH_F64, **jax_opts)
         jmod.model = JaxDetModel(config=JCFG, mode=mode, dtype=jnp.float64, s2d=False,
-                                 width_mult=WIDTH_F64, kd=kd, **model_opts)
+                                 width_mult=WIDTH_F64, kd=kd, **jax_model_opts)
         jmod.teacher = JaxTeacherModel(config=JCFG, dtype=jnp.float64, s2d=False,
                                        width_mult=WIDTH_F64)
         jmod._blocked = jmod._occ_blocked = False
@@ -97,7 +100,7 @@ def test_bridge_and_adam_state_every_mode(mode):
     GroupNorm without running stats) round-trips through both bridge
     directions, and optax's Adam moments over it load into the port's
     optimizer in the port's layout."""
-    opts = {"v2v_msg_norm": True} if mode == "v2v" else {}
+    opts = {"fusion": {"msg_norm": True}} if mode == "v2v" else {}
     port = DetModule(CFG, mode, device="cpu", width_mult=WIDTH_F64, **opts)
     variables = random_flax_variables(port.model, seed=5)
     back = flax_from_state_dict(state_dict_from_flax(variables, mode), mode)

@@ -80,8 +80,8 @@ FUSION_KEYWORDS = {
     "disco": {"edge_hidden": 32},
     "cat": {},
     "agent": {"hidden": 32},
-    "when2com": {},
-    "who2com": {},
+    "when2com": {"warp_flag": True},
+    "who2com": {"warp_flag": True},
     "v2v": {"rounds": 3, "msg_norm": False},
     "v2xvit": {"depth": 3, "heads": 8, "dim_head": 32, "num_types": 2,
                "window_heads": (16, 8, 4), "window_dim_heads": (16, 32, 64),
@@ -100,24 +100,20 @@ def check_mode(mode: str, modes: Tuple[str, ...] = PORT_MODES) -> None:
         raise ValueError(f"unknown mode {mode!r}; expected one of {modes}")
 
 
-def build_fusion(mode: str, grid, channels: int, num_agents: int, warp_flag: bool = True,
-                 v2v_rounds: int = 3, v2v_msg_norm: bool = False,
+def build_fusion(mode: str, grid, channels: int, num_agents: int,
                  fusion: Optional[Mapping[str, Any]] = None) -> Optional[nn.Module]:
     """The trained fusion module of ``mode`` over ``channels``-wide maps, or
     None for the modes without one (lowerbound, upperbound, sum, mean, max).
 
     ``fusion``: the module's settings under a configuration's names
-    (``FUSION_KEYWORDS``); a key the mode does not take raises ValueError.
-    ``v2v_rounds`` and ``v2v_msg_norm`` are V2VNet's ``rounds`` and
-    ``msg_norm`` where ``fusion`` does not give them."""
+    (``FUSION_KEYWORDS``); a key the mode does not take raises ValueError."""
     fusion = dict(fusion or {})
     known = FUSION_KEYWORDS.get(mode, {})
     unknown = sorted(set(fusion) - set(known))
     if unknown:
         raise ValueError(f"mode {mode!r} takes no fusion setting {unknown}; "
                          f"it takes {sorted(known)}")
-    kw = {**known, **({"rounds": v2v_rounds, "msg_norm": v2v_msg_norm} if mode == "v2v" else {}),
-          **fusion}
+    kw = {**known, **fusion}
     if mode == "disco":
         return F.DiscoFusion(grid, channels, hidden=kw["edge_hidden"])
     if mode == "cat":
@@ -125,7 +121,8 @@ def build_fusion(mode: str, grid, channels: int, num_agents: int, warp_flag: boo
     if mode == "agent":
         return F.AgentWiseWeightedFusion(grid, channels, hidden=kw["hidden"])
     if mode in ("when2com", "who2com"):
-        return When2comFusion(grid, channels, argmax_mode=mode == "who2com", warp_flag=warp_flag)
+        return When2comFusion(grid, channels, argmax_mode=mode == "who2com",
+                              warp_flag=kw["warp_flag"])
     if mode == "v2v":
         return V2VNetFusion(grid, channels, **kw)
     if mode == "v2xvit":
@@ -156,11 +153,9 @@ class DetModel(BatchNormGroup, nn.Module):
 
     Args:
       fusion_layer: encoder stage whose map is fused (None: the config's).
-      warp_flag: when2com/who2com only; warp the neighbors before mixing.
-      v2v_rounds, v2v_msg_norm: v2v only; GNN rounds, GroupNorm on the
-        averaged message.
       fusion: the fusion module's settings under a configuration's names
-        (``FUSION_KEYWORDS``), over the named ones above.
+        (``FUSION_KEYWORDS``): V2VNet's ``rounds`` and ``msg_norm``,
+        When2com's ``warp_flag``, ...; the defaults where not given.
       kd: return the fusion-layer map as ``fused_feat``.
       use_vis: the input carries D visibility channels after the D
         occupancy ones (DetModule's ``use_vis``): the encoder's first conv
@@ -175,8 +170,7 @@ class DetModel(BatchNormGroup, nn.Module):
     """
 
     def __init__(self, config: Config, mode: str = "lowerbound", width_mult: float = 1.0,
-                 fusion_layer: Optional[int] = None, warp_flag: bool = True,
-                 v2v_rounds: int = 3, v2v_msg_norm: bool = False, kd: bool = False,
+                 fusion_layer: Optional[int] = None, kd: bool = False,
                  use_vis: bool = False, spatial_group=None,
                  fusion: Optional[Mapping[str, Any]] = None):
         super().__init__()
@@ -193,7 +187,7 @@ class DetModel(BatchNormGroup, nn.Module):
         self.cls_head = ClassificationHead(chans[0], k, config.num_classes)
         self.reg_head = RegressionHead(chans[0], k, config.anchors.box_code_size)
         self.fusion = build_fusion(mode, config.grid, chans[self.layer], config.num_agents,
-                                   warp_flag, v2v_rounds, v2v_msg_norm, fusion=fusion)
+                                   fusion=fusion)
         self.spatial_group = spatial_group
         self.set_process_group(None)
 

@@ -44,7 +44,9 @@ from v2x_sim_tpu_torch.ops.assign import (
     labels_from_sparse_idx,
     sparse_label_idx,
 )
-from v2x_sim_tpu_torch.tools.common import device_label, synchronize, tool_device
+from v2x_sim_tpu_torch.tools.common import (
+    device_label, fusion_settings, synchronize, tool_device,
+)
 from v2x_sim_tpu_torch.train.det_module import DetModule, warmup_cosine_decay
 from v2x_sim_tpu_torch.train.seg_module import SegModule
 from v2x_sim_tpu_torch.utils.mean_ap import eval_map_agents
@@ -293,11 +295,11 @@ def run_mode(mode, args, config, spec, shared=None, seed=None) -> dict:
     device = args.device
     stream = _train_stream(args, config, spec, seed, shared)
     kd = mode == "disco+kd"
+    det_mode = "disco" if kd else mode
     mod = DetModule(
-        config, mode="disco" if kd else mode, device=device, learning_rate=_learning_rate(args),
+        config, mode=det_mode, device=device, learning_rate=_learning_rate(args),
         width_mult=args.width_mult, kd_weight=args.kd_weight if kd else 0.0,
-        kd_reduce=args.kd_reduce, v2v_rounds=args.v2v_rounds,
-        v2v_msg_norm=bool(getattr(args, "v2v_msg_norm", 0)), warp_flag=bool(args.warp_flag),
+        kd_reduce=args.kd_reduce, fusion=fusion_settings(args, det_mode),
         grad_clip=getattr(args, "grad_clip", 0.0),
     )
     raw0 = generate_batch(config, spec, batch_size=args.batch, seed=seed)

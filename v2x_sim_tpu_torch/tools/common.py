@@ -29,6 +29,7 @@ from v2x_sim_tpu_torch.configs.config import Config, GridConfig
 from v2x_sim_tpu_torch.datasets.cache import NpzCacheDataset
 from v2x_sim_tpu_torch.datasets.nuscenes import V2XSimDataset
 from v2x_sim_tpu_torch.datasets.synthetic import SyntheticSpec, generate_batch
+from v2x_sim_tpu_torch.models.det.net import FUSION_KEYWORDS
 from v2x_sim_tpu_torch.ops.assign import sparse_cell_capacity, target_fingerprint
 
 #: The reference's --com spellings -> internal mode names.
@@ -86,6 +87,21 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
         help="feed visibility maps (the reference's vis_maps) as extra input "
         "channels; bake them with create_data_det --vis 1 for full-speed runs",
     )
+
+
+#: A fusion setting (``FUSION_KEYWORDS``) -> the tools' flag that sets it
+#: and the flag's type: ``--warp_flag``, and bench_table's
+#: ``--v2v_rounds`` and ``--v2v_msg_norm``.
+SETTING_FLAGS = {"warp_flag": ("warp_flag", bool), "rounds": ("v2v_rounds", int),
+                 "msg_norm": ("v2v_msg_norm", bool)}
+
+
+def fusion_settings(args, mode: str) -> dict:
+    """``DetModule``'s ``fusion`` for ``mode`` from the flags ``args``
+    has: only the settings ``FUSION_KEYWORDS[mode]`` lists."""
+    known = FUSION_KEYWORDS.get(mode, {})
+    return {key: kind(getattr(args, flag)) for key, (flag, kind) in SETTING_FLAGS.items()
+            if key in known and hasattr(args, flag)}
 
 
 def reject_use_vis(p: argparse.ArgumentParser, args) -> None:

@@ -26,7 +26,7 @@ import torch
 from v2x_sim_tpu_torch.datasets.synthetic import generate_batch
 from v2x_sim_tpu_torch.models.convrnn import GRU_STATS, gru_diagnostics
 from v2x_sim_tpu_torch.tools.bench_table import build_config, build_spec
-from v2x_sim_tpu_torch.tools.common import tool_device
+from v2x_sim_tpu_torch.tools.common import fusion_settings, tool_device
 from v2x_sim_tpu_torch.train.det_module import DetModule
 
 
@@ -35,7 +35,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--grid", default="full", choices=["tiny", "tiny1m", "small", "medium", "full"])
     p.add_argument("--agents", type=int, default=6)
     p.add_argument("--width_mult", type=float, default=1.0)
-    p.add_argument("--rounds", type=int, default=3)
+    p.add_argument("--rounds", dest="v2v_rounds", type=int, default=3)
     p.add_argument("--steps", type=int, default=600)
     p.add_argument("--probe_every", type=int, default=100)
     p.add_argument("--batch", type=int, default=8)
@@ -61,7 +61,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     config = build_config(args)
     spec = build_spec(args)
     mod = DetModule(config, mode="v2v", device=device, learning_rate=args.lr,
-                    width_mult=args.width_mult, v2v_rounds=args.rounds)
+                    width_mult=args.width_mult, fusion=fusion_settings(args, "v2v"))
     mod.init_weights(args.seed)
     bt = mod.to_device(generate_batch(config, spec, batch_size=args.batch, seed=990_000))
     probe = {"occupancy": mod.model_input(bt), "trans": bt["trans"], "agent_mask": bt["agent_mask"]}

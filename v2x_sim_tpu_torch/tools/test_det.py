@@ -34,6 +34,7 @@ from v2x_sim_tpu_torch.tools.common import (
     add_common_args,
     build_config,
     device_and_dtype,
+    fusion_settings,
     make_batches,
     resolve_mode,
 )
@@ -75,7 +76,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Evaluation:
     mode = resolve_mode(args)
     device, _ = device_and_dtype(args)
     module = DetModule(config, mode, torch.float32, device, width_mult=args.width_mult,
-                       warp_flag=bool(args.warp_flag), use_vis=bool(args.use_vis))
+                       fusion=fusion_settings(args, mode), use_vis=bool(args.use_vis))
     path = args.resume if args.resume != "auto" else latest_checkpoint(args.logpath)
     if path:
         restore_checkpoint(path, module)

@@ -45,6 +45,7 @@ from v2x_sim_tpu_torch.tools.common import (
     add_common_args,
     build_config,
     device_and_dtype,
+    fusion_settings,
     make_batches,
     resolve_mode,
     strip_stale_targets,
@@ -166,7 +167,7 @@ def _train(args, device, dtype, logger, mesh: Optional[Mesh] = None) -> TrainRun
     logger.log(f"train_det mode={mode} grid={config.grid.grid_shape} device={device} args={vars(args)}")
     module = DetModule(
         config, mode, dtype, device, learning_rate=args.lr, grad_clip=args.grad_clip,
-        width_mult=args.width_mult, kd_weight=kd_weight, warp_flag=bool(args.warp_flag),
+        width_mult=args.width_mult, kd_weight=kd_weight, fusion=fusion_settings(args, mode),
         use_vis=bool(args.use_vis), mgda=args.mgda,
         process_group=None if mesh is None else mesh.data_group,
     )

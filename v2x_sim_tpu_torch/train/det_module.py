@@ -142,8 +142,8 @@ class DetModule:
         ``load_teacher_flax_variables`` or ``init_teacher_weights``).
       kd_reduce: "mean" divides the KD squared-error sum by its element
         count; "pos" by the positive count, as the detection terms.
-      warp_flag, v2v_rounds, v2v_msg_norm, fusion: DetModel's (``fusion``:
-        the fusion module's settings under a configuration's names).
+      fusion: DetModel's: the fusion module's settings under a
+        configuration's names (``models/det/net.py::FUSION_KEYWORDS``).
       use_vis: feed the visibility map as D more input channels
         (DetModel's ``use_vis``); the teacher reads no visibility.
       mgda: train by MGDA over the cls, loc and (with a teacher) KD losses
@@ -165,9 +165,6 @@ class DetModule:
         width_mult: float = 1.0,
         kd_weight: float = 0.0,
         kd_reduce: str = "mean",
-        warp_flag: bool = True,
-        v2v_rounds: int = 3,
-        v2v_msg_norm: bool = False,
         use_vis: bool = False,
         mgda: bool = False,
         process_group=None,
@@ -189,8 +186,7 @@ class DetModule:
         # Activations arrive channels-last (permuted NHWC views), so the
         # conv weights take the same memory format.
         self.model = DetModel(
-            config, mode, width_mult, warp_flag=warp_flag, v2v_rounds=v2v_rounds,
-            v2v_msg_norm=v2v_msg_norm, kd=kd_weight > 0.0, use_vis=use_vis,
+            config, mode, width_mult, kd=kd_weight > 0.0, use_vis=use_vis,
             spatial_group=spatial_group, fusion=fusion,
         ).to(self.device, memory_format=torch.channels_last)
         self.model.eval()  # BatchNorm's mode is the `train` argument, not this flag
