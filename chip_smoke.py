@@ -191,7 +191,8 @@ phases keep their numbers, which logs and documents cite.
      (csrc/batchnorm.cu through ops/cuda/bn_cu.py): one bf16 disco
      DetModule train step at B=16 launches each of its four passes 18
      times (its maps' shapes recorded; a finite loss), a bf16 eval forward
-     none; then at each recorded shape, on random maps, each pass held
+     normalize_relu 18 times (on the running stats) and no other pass;
+     then at each recorded shape, on random maps, each pass held
      once to its plain version (normalize_relu and backward_dx bit-equal,
      the float32 sums within 1e-5 of their terms) and timed beside its
      byte bound (2, 4, 6 and 8 bytes an element) and its plain
@@ -3116,8 +3117,9 @@ BN_SUM_RTOL = 1e-5  # a pass's float32 sums against the plain version's, of |ter
 
 def _bn_step_shapes(device, cfg, variables, batch, card: str) -> list:
     """Phase 17's launch counts: one bf16 disco train step at B (18
-    launches of each pass) and a bf16 eval forward (none); returns the
-    shapes of the step's BatchNorm maps in call order."""
+    launches of each pass) and a bf16 eval forward (18 of normalize_relu,
+    none of the others); returns the shapes of the step's BatchNorm maps
+    in call order."""
     import torch
 
     from v2x_sim_tpu_torch.ops.cuda import bn_cu
@@ -3151,10 +3153,11 @@ def _bn_step_shapes(device, cfg, variables, batch, card: str) -> list:
         module.model(prepared["occupancy"], prepared["trans"],
                      prepared["agent_mask"].to(torch.bool))
     torch.cuda.synchronize()
-    if any(bn_cu.launches().values()):
-        raise AssertionError(f"a bf16 eval forward launched {bn_cu.launches()}")
+    evaluated = bn_cu.launches()
+    if evaluated != {**{name: 0 for name in evaluated}, "normalize_relu": 18}:
+        raise AssertionError(f"a bf16 eval forward launched {evaluated}, not 18 normalize_relu")
     log(f"[17] a bf16 disco train step at B={batch['points'].shape[0]} launched {step} "
-        f"(synchronized), an eval forward none; maps (N, C, H, W): {shapes} [{card}]")
+        f"(synchronized), an eval forward {evaluated}; maps (N, C, H, W): {shapes} [{card}]")
     del module, prepared, metrics
     torch.cuda.empty_cache()
     return shapes

@@ -11,9 +11,11 @@ another order before its one bf16 rounding, and its terms cancel: at most
 largest magnitude (two bf16 ulps of it). The weight and bias gradients are
 float32 sums of the same products: within 1e-5 of the largest. Also on two
 gloo ranks, the moments and the backward's sums all-reduced over the
-group; and float32, float64 and inference never reach the Function and
-give the old path's outputs bit for bit. The kernels themselves are held
-to these plain versions on the card (tests/test_torch_cuda.py).
+group; float32, float64 and inference that records a graph never reach
+the passes and give the old path's outputs bit for bit; bf16 inference
+takes the normalize + ReLU pass alone, on the running stats. The kernels
+themselves are held to these plain versions on the card
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -183,36 +185,72 @@ def _count_calls(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("dtype,train", [(torch.float32, True), (torch.float64, True),
-                                         (torch.bfloat16, False), (torch.float32, False)],
-                         ids=["float32-train", "float64-train", "bf16-eval", "float32-eval"])
-def test_other_dtypes_and_inference_keep_the_unfused_layer(monkeypatch, dtype, train):
-    """bn_relu equals relu(_bn(...)) bit for bit, outputs, gradients and
-    running stats, and no pass is called."""
-    calls = _count_calls(monkeypatch)
-    bn_cu.reset_launches()
-    x, dy, weight, bias = _case(32, seed=7)
+#: Inference's running mean and variance, drawn from a case's bias and weight.
+RUNNING = (lambda bias: 2.0 * bias, lambda weight: weight * weight)
+
+
+def _layers(x, dy, weight, bias, dtype, train, records):
+    """bn_relu and relu(_bn(...)) on one map, each with a fresh BatchNorm
+    (parameters float64 for float64 maps, else float32): the outputs, the
+    running stats and, where autograd ``records``, the gradients of x,
+    weight and bias. Inference runs on running stats of :data:`RUNNING`;
+    without ``records``, under ``torch.no_grad()``."""
     pdtype = torch.float64 if dtype == torch.float64 else torch.float32
     runs = []
     for layer in (bn_relu, lambda x, bn, train: torch.relu(_bn(x, bn, train))):
         bn = _bn_module(weight.to(pdtype), bias.to(pdtype)).to(pdtype)
-        xi = x.to(dtype).requires_grad_(train)
-        y = layer(xi, bn, train)
-        if train:
+        if not train:
+            with torch.no_grad():
+                bn.running_mean.copy_(RUNNING[0](bias))
+                bn.running_var.copy_(RUNNING[1](weight))
+        xi = x.to(dtype).requires_grad_(records)
+        with torch.set_grad_enabled(records):
+            y = layer(xi, bn, train)
+        if records:
             y.backward(dy.to(dtype))
         runs.append([y.detach(), bn.running_mean, bn.running_var]
-                    + ([xi.grad, bn.weight.grad, bn.bias.grad] if train else []))
-    for got, want in zip(*runs):
-        assert torch.equal(got, want)
+                    + ([xi.grad, bn.weight.grad, bn.bias.grad] if records else []))
+    return runs
+
+
+@pytest.mark.parametrize("dtype,train,records", [
+    (torch.float32, True, True), (torch.float64, True, True), (torch.bfloat16, False, False),
+    (torch.float32, False, False), (torch.bfloat16, False, True)],
+    ids=["float32-train", "float64-train", "bf16-eval", "float32-eval", "bf16-eval-graph"])
+def test_other_dtypes_and_inference_keep_the_unfused_layer(monkeypatch, dtype, train, records):
+    """Float32 and float64 in training, float32 in inference, and bf16
+    inference under a graph (a frozen BatchNorm that gradients pass
+    through): bn_relu equals relu(_bn(...)) bit for bit, outputs,
+    gradients and running stats, and no pass is called. bf16 in
+    inference, where autograd records nothing, calls normalize_relu once a
+    layer and no other pass, on the running stats, which stay as they
+    were: flax's form of the affine against ATen's, at most DIFFER of the
+    outputs one ulp apart."""
+    calls = _count_calls(monkeypatch)
+    bn_cu.reset_launches()
+    x, dy, weight, bias = _case(32, seed=7)
+    fused = dtype == torch.bfloat16 and not records
+    (y, *got), (want_y, *want) = _layers(x, dy, weight, bias, dtype, train, records)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if fused:
+        assert torch.equal(got[0], RUNNING[0](bias)) and torch.equal(got[1], RUNNING[1](weight))
+        assert y.dtype == torch.bfloat16
+        _assert_one_ulp_apart(y, want_y, "y")
+    else:
+        assert torch.equal(y, want_y)
+    pdtype = torch.float64 if dtype == torch.float64 else torch.float32
     block = ConvBlock(16, 32).to(pdtype)
-    block(x[:, :16].to(dtype), train)
-    assert calls == {} and all(v == 0 for v in bn_cu.launches().values())
+    with torch.set_grad_enabled(records):
+        block(x[:, :16].to(dtype), train)
+    assert calls == ({"normalize_relu": 3} if fused else {})  # bn_relu, then the block's two
+    assert all(v == 0 for v in bn_cu.launches().values())
 
 
 def test_bf16_training_reaches_the_function_in_every_conv_block(monkeypatch):
     """A bf16 train-mode DetModel forward and backward calls each pass 18
     times (10 BatchNorms in the encoder, 8 in the decoder); its inference
-    calls none."""
+    calls normalize_relu 18 times and no other pass."""
     cfg = Config(grid=GridConfig(voxel_size=(2.0, 2.0, 1.25)))
     model = DetModel(cfg, "disco", width_mult=0.25)
     rng = np.random.default_rng(3)
@@ -223,7 +261,8 @@ def test_bf16_training_reaches_the_function_in_every_conv_block(monkeypatch):
     calls = _count_calls(monkeypatch)
     with torch.no_grad():
         model(occ.to(torch.bfloat16), trans, mask)
-    assert calls == {}
+    assert calls == {"normalize_relu": 18}
+    calls.clear()
     out = model(occ.to(torch.bfloat16), trans, mask, train=True)
     assert calls == {"moments": 18, "normalize_relu": 18}
     out.cls_logits.float().sum().backward()

@@ -37,7 +37,11 @@ roundings the port copies from JAX (a conv's bias added after the conv's
 rounding, the upsample's rows rounded before its columns); the step
 tests of tests/test_torch_bf16_step.py and tests/test_torch_bf16_seg.py
 need both, and ``test_bf16_conv_bias_and_upsample_round_as_jax`` pins
-them.
+them. The v2v eval case needs the same bias rounding in the ConvGRU's
+convs (``models/convrnn.py::same_conv``, pinned by
+``test_bf16_rnn_conv_adds_bias_after_rounding``): with the bias inside
+the conv its box codes stood 0.04785 from JAX's bf16 (allowed 0.04698),
+with it after 0.03345.
 """
 
 import numpy as np
@@ -50,7 +54,8 @@ import jax.numpy as jnp
 
 from v2x_sim_tpu.models.det.net import DetModel as JaxDetModel
 from v2x_sim_tpu_torch.bridge import state_dict_from_flax
-from v2x_sim_tpu_torch.models.backbone import _bn, _conv, upsample_bilinear
+from v2x_sim_tpu_torch.models.backbone import _bn, _conv, bn_relu, upsample_bilinear
+from v2x_sim_tpu_torch.models.convrnn import same_conv
 from v2x_sim_tpu_torch.models.det.net import DetModel
 from tests.test_torch_model import CFG, FUSION, JCFG, _flax_variables, _inputs, _jax_kw
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401
@@ -154,6 +159,86 @@ def test_bf16_train_batchnorm_rounds_once(shape):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(stats["batch_stats"]["var"]),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("records", [False, True], ids=["no-grad", "records"])
+@pytest.mark.parametrize("shape", [(4, 64, 16, 16), (6, 32, 32, 32)])
+def test_bf16_eval_batchnorm_relu_matches_flax(shape, records):
+    """One inference BatchNorm + ReLU in bf16 (``bn_relu(..., train=False)``)
+    against ``relu(nn.BatchNorm(use_running_average=True,
+    dtype=bfloat16))`` on drawn running stats, scale and bias. Where
+    autograd records nothing the layer is the normalize + ReLU pass on the
+    running stats, flax's form rounded once: at most 1e-3 of the outputs
+    differ from flax's, by one ulp (none expected). With grad enabled on a
+    map that requires grad it keeps ``relu(_bn(...))``, output and input
+    gradient bit for bit."""
+    rng = np.random.default_rng(shape[1] + 1)
+    n, c, h, w = shape
+    x = (rng.normal(0.7, 1.3, (n, h, w, c))).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    bias = rng.normal(0.0, 0.3, c).astype(np.float32)
+    mean = rng.normal(0.7, 0.5, c).astype(np.float32)
+    var = rng.uniform(0.5, 2.5, c).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    flax_bn = nn.BatchNorm(use_running_average=True, dtype=jnp.bfloat16)
+    want = jax.nn.relu(flax_bn.apply(
+        {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+         "batch_stats": {"mean": jnp.asarray(mean), "var": jnp.asarray(var)}}, xb))
+    bn = torch.nn.BatchNorm2d(c, eps=1e-5)
+    with torch.no_grad():
+        for t, v in ((bn.weight, scale), (bn.bias, bias), (bn.running_mean, mean),
+                     (bn.running_var, var)):
+            t.copy_(torch.from_numpy(v))
+    xt = torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16).permute(0, 3, 1, 2)
+    if records:
+        grads = []
+        for layer in (bn_relu, lambda x, bn, train: torch.relu(_bn(x, bn, train))):
+            xi = xt.clone().requires_grad_(True)
+            y = layer(xi, bn, False)
+            y.float().sum().backward()
+            grads.append((y.detach(), xi.grad))
+        assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+        return
+    with torch.no_grad():
+        got = bn_relu(xt, bn, train=False)
+    assert got.dtype == torch.bfloat16
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    want = np.asarray(want, np.float32)
+    differ = got != want
+    assert differ.mean() <= 1e-3, differ.mean()
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=0)
+    np.testing.assert_array_equal(bn.running_mean.numpy(), mean)
+    np.testing.assert_array_equal(bn.running_var.numpy(), var)
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_bf16_rnn_conv_adds_bias_after_rounding(k):
+    """A recurrent cell's gate conv (``convrnn.same_conv``) in bf16 against
+    flax's ``nn.Conv(padding="SAME", dtype=bfloat16)``, which rounds the
+    conv before adding the bias; an even kernel takes the padded path.
+    V2VNet's ConvGRU runs these convs every round."""
+    rng = np.random.default_rng(11 + k)
+    cin, cout = 32, 16
+    x = rng.normal(0.2, 1.1, (2, 3, 8, 8, cin)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    kernel = rng.normal(0.0, 0.1, (k, k, cin, cout)).astype(np.float32)
+    bias = rng.normal(0.0, 0.5, cout).astype(np.float32)
+    want = np.asarray(nn.Conv(cout, (k, k), padding="SAME", dtype=jnp.bfloat16).apply(
+        {"params": {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(bias)}}, xb), np.float32)
+    conv = torch.nn.Conv2d(cin, cout, k)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(kernel).permute(3, 2, 0, 1))
+        conv.bias.copy_(torch.from_numpy(bias))
+    xt = torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        got = same_conv(xt, conv)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 3, 8, 8, cout)
+    got = got.float().numpy()
+    # The conv's own accumulation order may flip a rounding: one ulp of the
+    # rounded conv output, then one of the sum with the bias.
+    assert (got != want).mean() <= 2e-3, (got != want).mean()
+    ulps = 2.0 ** -7 * (np.abs(want - bias) + np.abs(want)) + 2.0 ** -16
+    assert (np.abs(got - want) <= ulps).all()
 
 
 def test_bf16_conv_bias_and_upsample_round_as_jax():

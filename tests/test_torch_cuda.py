@@ -4,7 +4,8 @@ the CUDA kernel against the plain PyTorch version (the forced-anchor
 entry's CPU cases are in tests/test_torch_forced_anchor.py). On the card
 too: the fused BatchNorm + ReLU passes (ops/cuda/bn_cu.py; their CPU cases
 are in tests/test_torch_batchnorm.py) against their plain versions at
-the widths and resolutions of a B=16 DiscoNet training step, and the
+the widths and resolutions of a B=16 DiscoNet training step, inference's
+route to the normalize + ReLU pass on the running stats, and the
 decoder's fused upsample and concatenation (ops/cuda/upsample_cu.py; CPU
 cases in tests/test_torch_upsample.py) at that step's four stage inputs.
 
@@ -479,7 +480,7 @@ def test_batchnorm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 def test_batchnorm_launches_of_a_bf16_train_step(cuda_device):
     """A bf16 DiscoNet train forward and backward launches each pass 18
     times (10 BatchNorms in the encoder, 8 in the decoder); a bf16
-    inference forward none."""
+    inference forward normalize_relu 18 times and no other pass."""
     from v2x_sim_tpu_torch.configs.config import Config, GridConfig
     from v2x_sim_tpu_torch.models.det.net import DetModel
 
@@ -495,12 +496,76 @@ def test_batchnorm_launches_of_a_bf16_train_step(cuda_device):
     with torch.no_grad():
         model(occ, trans.contiguous(), mask)
     torch.cuda.synchronize()
-    assert all(v == 0 for v in bn_cu.launches().values())
+    assert bn_cu.launches() == {"moments": 0, "normalize_relu": 18, "backward_reduce": 0,
+                                "backward_dx": 0}
+    bn_cu.reset_launches()
     out = model(occ, trans.contiguous(), mask, train=True)
     out.cls_logits.float().sum().backward()
     torch.cuda.synchronize()
     assert bn_cu.launches() == {name: 18 for name in ("moments", "normalize_relu",
                                                       "backward_reduce", "backward_dx")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", (BN_SHAPES[0], BN_SHAPES[-1]), ids=lambda s: f"c{s[1]}")
+def test_batchnorm_inference_takes_normalize_relu_on_card(cuda_device, shape):
+    """A bf16 inference bn_relu with no graph recorded: one normalize_relu
+    launch on the running stats, normalize_relu_plain's output bit for bit
+    given the same (C,) vectors, the running stats untouched, and within
+    the one-ulp share of relu(_bn(..., False)) (ATen folds the affine
+    into x * a + b, so an output near 0 may also differ by float32's
+    error of that sum, as in the training test)."""
+    from tests.test_torch_batchnorm import _assert_one_ulp_apart
+    from v2x_sim_tpu_torch.models.backbone import _bn, bn_relu
+
+    x, _, weight, bias = _bn_operands(shape, cuda_device, seed=shape[1] + 2)
+    c = shape[1]
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    bn = torch.nn.BatchNorm2d(c, eps=1e-5).to(cuda_device)
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+        bn.running_mean.copy_(torch.randn(c, device=cuda_device, generator=gen) * 0.8)
+        bn.running_var.copy_(torch.rand(c, device=cuda_device, generator=gen) * 3 + 0.1)
+    stats = (bn.running_mean.clone(), bn.running_var.clone())
+    before = bn_cu.launches()
+    with torch.inference_mode():
+        y = bn_relu(x, bn, False)
+        want = torch.relu(_bn(x, bn, False))
+    torch.cuda.synchronize()
+    assert bn_cu.launches() == {**before, "normalize_relu": before["normalize_relu"] + 1}
+    assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        plain = bn_cu.normalize_relu_plain(x, bn.running_mean, inv, bn.bias)
+    assert torch.equal(y, plain)
+    assert torch.equal(bn.running_mean, stats[0]) and torch.equal(bn.running_var, stats[1])
+    _assert_one_ulp_apart(y, want, "y", BN_NEAR_ZERO)
+
+
+@pytest.mark.gpu
+def test_batchnorm_launches_of_a_bf16_predict_forward(cuda_device):
+    """A bf16 DetModel inference forward at width_mult 0.25 launches
+    normalize_relu 18 times and no other pass; a float32 one none."""
+    from v2x_sim_tpu_torch.configs.config import Config, GridConfig
+    from v2x_sim_tpu_torch.models.det.net import DetModel
+
+    cfg = Config(grid=GridConfig(voxel_size=(1.0, 1.0, 0.625)))
+    model = DetModel(cfg, "disco", width_mult=0.25).to(cuda_device,
+                                                       memory_format=torch.channels_last)
+    h, w, d = cfg.grid.grid_shape
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    occ = (torch.rand(2, cfg.num_agents, h, w, d, device=cuda_device, generator=gen) < 0.05)
+    trans = torch.eye(4, device=cuda_device).expand(2, cfg.num_agents, cfg.num_agents, 4, 4)
+    mask = torch.ones(2, cfg.num_agents, dtype=torch.bool, device=cuda_device)
+    before = bn_cu.launches()
+    with torch.inference_mode():
+        model(occ.float(), trans.contiguous(), mask)
+        torch.cuda.synchronize()
+        assert bn_cu.launches() == before
+        model(occ.to(torch.bfloat16), trans.contiguous(), mask)
+    torch.cuda.synchronize()
+    assert bn_cu.launches() == {**before, "normalize_relu": before["normalize_relu"] + 18}
 
 
 #: The decoder's stage inputs of a B=16 DiscoNet call (16 scenes x 6

@@ -40,8 +40,10 @@ and stores the same running stats. A bf16 map in training takes
 autograd Function of four passes (``ops/cuda/bn_cu.py``; hand-written
 CUDA on the card, their plain PyTorch version on the CPU), the same
 function with its gradient in closed form, saving no float32 copy of the
-map. Float32 and float64 maps, and inference, run :func:`_bn` and a
-ReLU.
+map. A bf16 map in inference, where autograd records nothing, takes the
+second of those passes alone: normalize + ReLU in the same form on the
+running stats. Float32 and float64 maps, and inference that records a
+graph, run :func:`_bn` and a ReLU.
 
 Row sharding (a model's ``spatial_group``, JAX's ``spatial_mesh``): each
 rank holds its rows of every map (``parallel/spatial.py``); the 3x3 convs
@@ -142,8 +144,8 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) ->
     groups, ``mesh.group_list``) when one is given, and updates the
     running stats; a bf16 map is normalized in float32 and rounded once,
     as flax does. ``ConvBlock`` takes :func:`bn_relu`, which sends a bf16
-    map in training to the fused Function instead; this form is what it
-    is held to."""
+    map to the fused passes instead, in training and in inference; this
+    form is what they are held to."""
     if not train:
         return F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
@@ -167,13 +169,25 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) ->
 
 def bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False, group=None) -> torch.Tensor:
     """``relu(_bn(x, bn, train, group))``. A bf16 map in training takes the
-    fused Function (``bn_cu.batch_norm_relu``): the kernels for a CUDA map,
-    their plain version for a CPU one. Elsewhere the ReLU runs in place on
-    ``_bn``'s fresh output: the caller still holds ``x``, so a second
-    output would hold three maps at once where the block held two."""
-    if train and x.dtype == torch.bfloat16:
-        return bn_cu.batch_norm_relu(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                                     bn.eps, BN_MOMENTUM, group)
+    fused Function (``bn_cu.batch_norm_relu``). A bf16 map in inference
+    whose channels the kernel takes (a multiple of ``bn_cu.VEC``, at most
+    ``bn_cu.MAX_CHANNELS``), where autograd records nothing, takes its
+    normalize + ReLU pass alone on the running stats, with ``inv = weight *
+    rsqrt(running_var + eps)`` in float32: one read and one write of the
+    map. Both run the kernels for a CUDA map, their plain versions for a
+    CPU one. Elsewhere the ReLU runs in place on ``_bn``'s fresh output:
+    the caller still holds ``x``, so a second output would hold three maps
+    at once where the block held two."""
+    if x.dtype == torch.bfloat16:
+        if train:
+            return bn_cu.batch_norm_relu(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                         bn.eps, BN_MOMENTUM, group)
+        c = x.shape[1]
+        records = torch.is_grad_enabled() and (x.requires_grad or bn.weight.requires_grad
+                                               or bn.bias.requires_grad)
+        if c % bn_cu.VEC == 0 and c <= bn_cu.MAX_CHANNELS and not records:
+            inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+            return bn_cu.normalize_relu(bn_cu._layout(x), bn.running_mean, inv, bn.bias)
     return torch.relu_(_bn(x, bn, train, group))
 
 

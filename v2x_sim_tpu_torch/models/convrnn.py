@@ -37,7 +37,8 @@ def same_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
     """A stride-1 conv of a channel-last (..., *spatial, C) map with flax's
     ``SAME`` padding (for an even kernel, the extra pad goes after), params
     cast to the activation dtype; channel-last out. Leading dims are batch
-    dims, as in flax."""
+    dims, as in flax. In bf16 the bias is added to the rounded conv output,
+    as flax adds it (in place: no second output map)."""
     k = conv.weight.shape[2:]
     ndim = len(k)
     lead = x.shape[: x.dim() - ndim - 1]
@@ -47,7 +48,12 @@ def same_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
     else:
         xc = F.pad(xc, [p for s in reversed(k) for p in ((s - 1) // 2, s // 2)])
         pad = 0
-    y = _CONV[ndim][1](xc, conv.weight.to(x.dtype), conv.bias.to(x.dtype), 1, pad)
+    bias = conv.bias.to(x.dtype)
+    if x.dtype == torch.bfloat16:
+        y = _CONV[ndim][1](xc, conv.weight.to(x.dtype), None, 1, pad)
+        y.add_(bias.reshape((-1,) + (1,) * ndim))
+    else:
+        y = _CONV[ndim][1](xc, conv.weight.to(x.dtype), bias, 1, pad)
     return y.movedim(1, -1).reshape(lead + tuple(y.shape[2:]) + (y.shape[1],))
 
 

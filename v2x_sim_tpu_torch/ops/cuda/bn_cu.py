@@ -1,6 +1,10 @@
-"""Train-mode BatchNorm + ReLU of bf16 maps: the wrapper of
-``csrc/batchnorm.cu``, its plain PyTorch version, and the autograd
-Function ``models/backbone.py`` calls.
+"""BatchNorm + ReLU of bf16 maps: the wrapper of ``csrc/batchnorm.cu``,
+its plain PyTorch version, and the autograd Function
+``models/backbone.py`` calls in training. Inference that records no graph
+calls the ``normalize_relu`` pass alone (``models/backbone.py::bn_relu``),
+with the running mean for ``mean`` and ``weight * rsqrt(running_var +
+eps)`` for ``inv``: one read and one write of the map where ATen's
+inference BatchNorm and the in-place ReLU after it made two of each.
 
 No TPU kernel is replaced: the JAX package's BatchNorm is flax's
 ``nn.BatchNorm`` under XLA, which fuses it there. In the port a bf16 map's
