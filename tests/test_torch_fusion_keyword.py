@@ -59,6 +59,9 @@ def test_the_listed_defaults_are_the_constructors(mode):
     ("when2com", {"warp_flag": False}, "warp_flag", False),
     ("v2xvit", {"depth": 2}, "layers.__len__", 2),
     ("v2xvit", {"window_sizes": [2, 4, 8]}, "layers.0.mswin.windows.2.window", 8),
+    ("cobevt", {"depth": 2}, "layers.__len__", 2),
+    ("cobevt", {"window_size": 4}, "layers.0.grid_attn.window", 4),
+    ("cobevt", {"dim_head": 16}, "layers.0.local_attn.heads", 4),
 ])
 def test_a_setting_reaches_the_module(mode, fusion, path, want):
     got = _model(mode, fusion=fusion).fusion
@@ -72,6 +75,7 @@ def test_a_setting_reaches_the_module(mode, fusion, path, want):
     ("v2v", {"window": 4}),
     ("cat", {"edge_hidden": 32}),
     ("v2xvit", {"rounds": 3}),
+    ("cobevt", {"heads": 8}),
     ("mean", {"edge_hidden": 32}),
     ("lowerbound", {"depth": 3}),
 ])

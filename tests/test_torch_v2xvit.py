@@ -275,7 +275,7 @@ def test_dropout_acts_only_in_training():
 def test_the_mode_sits_beside_the_jax_modes():
     assert MODES == ("lowerbound", "upperbound", "sum", "mean", "max", "cat", "agent",
                      "when2com", "who2com", "v2v", "disco")
-    assert PORT_MODES == MODES + ("v2xvit",)
+    assert PORT_MODES == MODES + ("v2xvit", "cobevt")
     check_mode("v2xvit")
     with pytest.raises(ValueError, match="detection-only"):
         check_mode("v2xvit", MODES)

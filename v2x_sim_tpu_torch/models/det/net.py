@@ -42,6 +42,7 @@ from v2x_sim_tpu_torch.models.backbone import (
     width_mult as scaled_widths,
 )
 from v2x_sim_tpu_torch.models.det import fusion as F
+from v2x_sim_tpu_torch.models.det.cobevt import CoBEVTFusion
 from v2x_sim_tpu_torch.models.det.v2vnet import V2VNetFusion
 from v2x_sim_tpu_torch.models.det.v2xvit import V2XViTFusion
 from v2x_sim_tpu_torch.models.det.when2com import When2comFusion
@@ -64,9 +65,10 @@ MODES = (
 )
 
 #: The port's detection modes: the JAX package's, then V2X-ViT's
-#: transformer fusion (``models/det/v2xvit.py``), which the JAX package
-#: does not have.
-PORT_MODES = MODES + ("v2xvit",)
+#: transformer fusion (``models/det/v2xvit.py``) and CoBEVT's fused axial
+#: attention (``models/det/cobevt.py``), which the JAX package does not
+#: have.
+PORT_MODES = MODES + ("v2xvit", "cobevt")
 
 #: Modes that run no fusion (upperbound's input is already merged).
 NO_FUSION = ("lowerbound", "upperbound")
@@ -88,6 +90,7 @@ FUSION_KEYWORDS = {
                "window_sizes": (4, 8, 16), "relative_pos_embedding": True,
                "window_fusion": "split_attn", "mlp_dim": 256, "dropout": 0.3, "use_rte": True,
                "rte_ratio": 2, "use_roi_mask": True},
+    "cobevt": {"depth": 3, "dim_head": 32, "mlp_dim": 256, "window_size": 8, "dropout": 0.1},
 }
 
 
@@ -127,6 +130,8 @@ def build_fusion(mode: str, grid, channels: int, num_agents: int,
         return V2VNetFusion(grid, channels, **kw)
     if mode == "v2xvit":
         return V2XViTFusion(grid, channels, **kw)
+    if mode == "cobevt":
+        return CoBEVTFusion(grid, channels, num_agents, **kw)
     return None
 
 

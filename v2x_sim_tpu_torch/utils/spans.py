@@ -15,12 +15,16 @@ Every span of the port is named ``det.<...>``. The entries of
 ``train/det_module.py::DetModule`` open ``det.predict``,
 ``det.prepare_batch`` and ``det.train_step``, and the modules that own
 the work open the stages inside them (``models/det/net.py``,
-``models/det/v2vnet.py``, ``models/det/v2xvit.py``, ``ops/assign.py``,
-``ops/nms.py``). A span never sits inside a per-element or per-iteration
-loop, such as NMS's greedy loop. There are two exceptions, loops of a
-few heavy iterations: V2VNet's round (``det.fuse.round``, 3 a call) and
-V2X-ViT's layer (``det.fuse.hmsa``, ``det.fuse.mswin`` and
-``det.fuse.ffn``, one each a layer, 3 a call; ``det.fuse.sttf`` once).
+``models/det/v2vnet.py``, ``models/det/v2xvit.py``,
+``models/det/cobevt.py``, ``ops/assign.py``, ``ops/nms.py``). A span
+never sits inside a per-element or per-iteration loop, such as NMS's
+greedy loop. There are three exceptions, loops of a few heavy
+iterations: V2VNet's round (``det.fuse.round``, 3 a call), V2X-ViT's
+layer (``det.fuse.hmsa``, ``det.fuse.mswin`` and ``det.fuse.ffn``, one
+each a layer, 3 a call; ``det.fuse.sttf`` once) and CoBEVT's layer
+(``det.fuse.fax_local`` and ``det.fuse.fax_grid`` one each a layer,
+``det.fuse.ffn`` two, 3 layers a call; ``det.fuse.warp`` and
+``det.fuse.head`` once).
 """
 
 from __future__ import annotations
